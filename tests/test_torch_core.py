@@ -43,7 +43,7 @@ def test_make_cloud_matches():
     xyz = rng.normal(size=(300, 3)).astype(np.float32)
     xyz[5] = np.nan
     a = jcloud.make_cloud(xyz)
-    b = tcloud.make_cloud(xyz)
+    b = tcloud.make_cloud(xyz, device="cpu")
     assert jcloud.bucket_size(300) == tcloud.bucket_size(300) == 512
     for f in ("xyz", "mask", "rgb"):
         np.testing.assert_array_equal(np.asarray(getattr(a, f)),

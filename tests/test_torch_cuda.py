@@ -12,6 +12,7 @@ import torch
 
 from tpu_joints_torch.neighbors import pallas_knn as k1
 from tpu_joints_torch.neighbors.bruteforce import knn
+from tpu_joints_torch.segment.region_growing import region_growing
 
 
 @pytest.mark.cuda
@@ -48,3 +49,80 @@ def test_nn1_rejects_cpu_mask_with_cuda_points():
     q = torch.zeros(4, 3, device="cuda")
     with pytest.raises(ValueError):
         k1.nn1(q, q, torch.ones(4, dtype=torch.bool))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2560, 2560, 16, 0.0), (8192, 8192, 30, 0.3),
+                                   (2560, 2560, 2, 0.0), (2560, 2560, 32, 0.0),
+                                   (100, 20, 32, 0.0), (64, 256, 8, 1.0),
+                                   (70, 100, 16, 0.25), (5000, 3333, 16, 0.1),
+                                   (1001, 2048, 8, 0.0)])
+def test_knnk_kernel_matches_plain_on_card(shape):
+    """Kernel K2 equals its plain version bit for bit, at the generic
+    path's region-growing and clustered-OBB shapes and at the edge cases
+    (k = 2 and 32, N < k, all or some sources masked, N off the tile, M off
+    the block); empty slots are (3e38, 0)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    M, N, k, masked = shape
+    rng = np.random.default_rng(M + N + k)
+    dev = torch.device("cuda")
+    q = torch.from_numpy(rng.normal(size=(M, 3)).astype(np.float32)).to(dev)
+    s = torch.from_numpy(rng.normal(size=(N, 3)).astype(np.float32)).to(dev)
+    m = torch.from_numpy(rng.uniform(size=N) >= masked).to(dev)
+    before = k1.knnk.launches
+    d, i = knn(q, s, k, source_mask=m)      # the paths' entry to K2
+    assert k1.knnk.launches == before + 1
+    dr, ir = k1.knnk_reference(q, s, k, m)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir)
+    assert torch.equal(d, dr)
+    empty = d >= 1e30
+    assert int(empty.sum()) == M * max(0, k - int(m.sum()))
+    assert bool((i[empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_knnk_breaks_exact_ties_to_the_lowest_index_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(3)
+    base = rng.normal(size=(512, 3)).astype(np.float32)
+    s = torch.from_numpy(np.concatenate([base, base])).cuda()
+    q = s[:256].clone()
+    d, i = k1.knnk(q, s, 16)
+    dr, ir = k1.knnk_reference(q, s, 16)
+    assert torch.equal(i, ir) and torch.equal(d, dr)
+    assert torch.equal(i[:, 0].long(), torch.arange(256, device="cuda"))
+    assert torch.equal(i[:, 1].long(), torch.arange(256, device="cuda") + 512)
+
+
+@pytest.mark.cuda
+def test_region_growing_reads_the_host_once_per_eight_sweeps_on_card():
+    """On the card the region growing synchronises exactly once per host
+    read of its schedule, and nowhere else."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import warnings
+
+    from tpu_joints_torch.core.cloud import make_cloud
+    from tpu_joints_torch.features.normals import estimate_normals
+
+    rng = np.random.default_rng(0)
+    t = rng.uniform(0, 2 * np.pi, 2000)
+    h = rng.uniform(-0.3, 0.3, 2000)
+    pts = np.stack([h, 0.08 * np.cos(t), 0.08 * np.sin(t) + 1.0], 1)
+    cloud = make_cloud(pts.astype(np.float32), capacity=2048)
+    n, curv = estimate_normals(cloud, k=16)
+    torch.cuda.synchronize()
+    before = region_growing.host_checks
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            region_growing(cloud, n, curv, k=16, max_edge=0.05)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    assert region_growing.host_checks - before >= 1
+    assert len(syncs) == region_growing.host_checks - before

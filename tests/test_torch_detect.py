@@ -59,7 +59,7 @@ def problem():
     jb = jbuild_bank(model, **BANK_KW)
     tb = tbank.bank_from_numpy(
         {k: np.asarray(getattr(jb, k)) for k in ARRAYS}
-        | {"params_hash": jb.params_hash})
+        | {"params_hash": jb.params_hash}, device="cpu")
     T_gt = syn.bench_pose()
     xyz, valid = syn.frame(T_gt, 42, with_table=False, width=320, height=240)
     # bench.py's scene_latency chain at the small size it validates on CPU
@@ -85,11 +85,11 @@ def features(problem):
     fj, _ = jdet._organized_features_jit(
         jnp.asarray(xyz), jnp.asarray(valid), jcfg, 2, 3,
         jnp.asarray(syn.CROP_LO), jnp.asarray(syn.CROP_HI), None)
-    scene, normals, _, _ = ingest_organized_blocks(
+    scene, normals, curvature, _ = ingest_organized_blocks(
         _t(xyz), _t(valid), block=2, half_window=3,
         capacity=tcfg.scene_capacity, crop_lo=_t(syn.CROP_LO),
         crop_hi=_t(syn.CROP_HI))
-    ft = tdet.prepare_scene(scene, tcfg, normals)
+    ft = tdet.prepare_scene(scene, tcfg, normals=normals, curvature=curvature)
     return fj, ft
 
 
@@ -258,14 +258,18 @@ def test_build_bank_level0_matches(problem):
     """The port's own bank build, array by array against JAX's. Geometry,
     keypoints and validity are exact. Descriptors and frames agree within
     1e-4 on all but a few valid keypoints: the reference's k=16 normals
-    select neighbours with XLA's approximate top-k, whose CPU fallback
-    orders exact distance ties by neither index (measured: the 16th
-    neighbour 125 before 117 at equal distance), so a point's normal can
-    differ where a tie sits on the k-th place (one point in 4 of 12 views,
-    measured), and with it the descriptors whose support holds that point
-    (21 of 723 valid keypoints, up to 6.4e-3)."""
+    select neighbours with XLA's approximate top-k over the expansion
+    |q|²+|s|²−2q·s, whose CPU fallback orders exact distance ties by
+    neither index (measured: the 16th neighbour 125 before 117 at equal
+    distance); the port's go to kernel K2, which takes the TPU kernel's
+    difference form ((dx²+dy²)+dz²) and breaks ties to the lowest index. So
+    a point's normal can differ where a near-tie sits on the 16th place (5
+    points in 4 of 12 views, measured), and with it the descriptors and
+    frames whose support holds that point (measured: 17 of 723 valid
+    descriptors beyond 1e-4, up to 3.8e-3; 6 frames, up to 1.8e-3; with the
+    sort path's expansion form it was 21 descriptors, up to 6.4e-3)."""
     model, jb, _, _, _, _, _, _ = problem
-    tb = tbank.build_bank(model, **BANK_KW)
+    tb = tbank.build_bank(model, **BANK_KW, device="cpu")
     for k in ("view_xyz", "view_mask", "key_xyz", "key_valid", "poses",
               "model_xyz", "model_mask", "icp_xyz", "icp_mask"):
         np.testing.assert_array_equal(getattr(tb, k).numpy(),
@@ -283,7 +287,7 @@ def test_bank_npz_interchange(problem, tmp_path):
     """A bank saved by the JAX package loads into the port, and back."""
     _, jb, tb, _, _, _, _, _ = problem
     jsave_bank(str(tmp_path / "jax.npz"), jb)
-    loaded = tbank.load_bank(str(tmp_path / "jax.npz"))
+    loaded = tbank.load_bank(str(tmp_path / "jax.npz"), device="cpu")
     tbank.save_bank(str(tmp_path / "port.npz"), loaded)
     back = jload_bank(str(tmp_path / "port.npz"))
     for k in ARRAYS:

@@ -32,6 +32,23 @@ class Cloud(NamedTuple):
         """Number of valid points (int32 tensor, no host sync)."""
         return self.mask.sum(dtype=torch.int32)
 
+    def with_mask(self, mask: torch.Tensor) -> "Cloud":
+        """Replace the mask, re-sentineling newly invalid lanes."""
+        mask = mask & self.mask
+        xyz = torch.where(mask[:, None], self.xyz, SENTINEL)
+        return Cloud(xyz=xyz, mask=mask, rgb=self.rgb)
+
+
+def card_device(device="cuda") -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device when none is
+    available raises, so an entry point never carries on on the CPU unless
+    the caller asked for it with ``device="cpu"``."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return dev
+
 
 def bucket_size(n: int, minimum: int = 256) -> int:
     """Round ``n`` up to a power of two (at least ``minimum``)."""
@@ -42,8 +59,10 @@ def bucket_size(n: int, minimum: int = 256) -> int:
 
 
 def make_cloud(xyz, rgb=None, capacity: Optional[int] = None,
-               device="cpu") -> Cloud:
-    """Padded Cloud on ``device`` from host arrays, dropping NaN/Inf points."""
+               device="cuda") -> Cloud:
+    """Padded Cloud on ``device`` (the card unless asked otherwise) from host
+    arrays, dropping NaN/Inf points."""
+    device = card_device(device)
     xyz = np.asarray(xyz, dtype=np.float32).reshape(-1, 3)
     finite = np.isfinite(xyz).all(axis=1)
     xyz = xyz[finite]

@@ -1,7 +1,9 @@
 """kNN surface normals + curvature (counterpart of
 ``tpu_joints/features/normals.py::estimate_normals``): covariance of each
 point's k nearest valid neighbours, smallest eigenvector oriented toward the
-viewpoint, curvature λ0/(λ0+λ1+λ2). Used by the bank build."""
+viewpoint, curvature λ0/(λ0+λ1+λ2). Used by the bank build, the scene side
+of ``pipelines.detect.detect`` and the clustered OBB; the neighbour search
+(2 <= k <= 32) is one launch of kernel K2."""
 from __future__ import annotations
 
 from typing import Optional, Tuple

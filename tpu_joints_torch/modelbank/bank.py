@@ -18,7 +18,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from tpu_joints_torch.core.cloud import Cloud, bucket_size, make_cloud
+from tpu_joints_torch.core.cloud import (Cloud, bucket_size, card_device,
+                                         make_cloud)
 from tpu_joints_torch.features.lrf import board_lrf
 from tpu_joints_torch.features.normals import estimate_normals
 from tpu_joints_torch.features.shot import compute_shot
@@ -89,15 +90,17 @@ def _subsample_views(view_xyz: np.ndarray, view_mask: np.ndarray,
     return out_xyz, out_mask
 
 
-def bank_from_numpy(arrays: dict, device="cpu") -> ModelBank:
-    """ModelBank on ``device`` from a dict of numpy arrays in the ``.npz``
-    layout that ``save_bank`` writes (as the reference's does)."""
+def bank_from_numpy(arrays: dict, device="cuda") -> ModelBank:
+    """ModelBank on ``device`` (the card unless asked otherwise) from a dict
+    of numpy arrays in the ``.npz`` layout that ``save_bank`` writes (as the
+    reference's does)."""
+    device = card_device(device)
     t = {k: torch.tensor(np.asarray(arrays[k]), device=device) for k in _ARRAYS}
     return ModelBank(**t, params_hash=str(arrays.get("params_hash", "")),
                      has_model=bool(np.any(arrays["model_mask"])))
 
 
-def load_bank(path: str, device="cpu") -> ModelBank:
+def load_bank(path: str, device="cuda") -> ModelBank:
     with np.load(path, allow_pickle=False) as z:
         return bank_from_numpy({k: z[k] for k in z.files}, device=device)
 
@@ -134,12 +137,14 @@ def build_bank(
     icp_capacity: int = 4096,
     views: Optional[List[np.ndarray]] = None,
     poses: Optional[np.ndarray] = None,
-    device="cpu",
+    device="cuda",
 ) -> ModelBank:
     """Render views of a CAD point set and compute its SHOT bank on
-    ``device`` — the reference's prep chain (kNN normals, uniform-sampled
-    keypoints, SHOT, voting frames of kind ``frames``). Arguments as in the
-    reference; ``surface_leaf`` downsamples each view before features."""
+    ``device`` (the card unless asked otherwise) — the reference's prep
+    chain (kNN normals, uniform-sampled keypoints, SHOT, voting frames of
+    kind ``frames``). Arguments as in the reference; ``surface_leaf``
+    downsamples each view before features."""
+    device = card_device(device)
     if descriptor != "shot":
         raise NotImplementedError(f"descriptor {descriptor!r} is not ported yet")
     if normal_radius > 0.0:

@@ -1,12 +1,14 @@
 """Exact, masked dense neighbour search (counterpart of
 ``tpu_joints/neighbors/bruteforce.py``).
 
-``knn(k=1, D=3)`` goes to kernel K1 (``pallas_knn.nn1``). Every other call
-(k > 1 or D != 3) computes the expansion form ``|q|² + |s|² − 2q·s``
-clamped at 0, as the JAX path does on the CPU, and keeps the ``k`` smallest
-by a stable sort: ties go to the lowest source index and the result is in
-ascending order. Slots without a valid source carry (3e38, 0), the JAX
-path's padding.
+3-D queries go to the kernels, as the JAX package sends them to its Pallas
+kernel: k = 1 to K1 (``pallas_knn.nn1``), 2 <= k <= 32 to K2
+(``pallas_knn.knnk``). Every other call (D != 3, such as descriptor
+matching, or k > 32, such as the k_max support gathers) computes the
+expansion form ``|q|² + |s|² − 2q·s`` clamped at 0, as the JAX path does on
+the CPU, and keeps the ``k`` smallest by a stable sort. Either way ties go
+to the lowest source index, the result is in ascending order, and slots
+without a valid source carry (3e38, 0), the JAX path's padding.
 """
 from __future__ import annotations
 
@@ -16,7 +18,7 @@ import numpy as np
 import torch
 
 from tpu_joints_torch.core.ops import fused_sumsq
-from tpu_joints_torch.neighbors.pallas_knn import INF, nn1
+from tpu_joints_torch.neighbors.pallas_knn import INF, MAX_K, knnk, nn1
 
 
 # query rows per distance block: bounds the [rows, N] matrix being sorted
@@ -34,6 +36,8 @@ def knn(query: torch.Tensor, source: torch.Tensor, k: int,
     N = source.shape[0]
     if k == 1 and D == 3:
         return nn1(query, source, source_mask)
+    if 2 <= k <= MAX_K and D == 3:
+        return knnk(query, source, k, source_mask)
     if source_mask is None:
         source_mask = torch.ones(N, dtype=torch.bool, device=source.device)
     # 3-D squared norms as chained FMAs, the way XLA reduces them: with the

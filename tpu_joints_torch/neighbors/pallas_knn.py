@@ -1,18 +1,22 @@
-"""Kernel K1: exact 3-D nearest valid source (k = 1), hand-written in CUDA.
+"""Kernels K1 and K2: exact 3-D nearest valid sources, hand-written in CUDA.
 
-Counterpart of ``tpu_joints/neighbors/pallas_knn.py::knn_pallas`` in its
-k=1 mode. The CUDA source is ``csrc/nn1.cu``; it is compiled with nvcc for
-``sm_90a`` on first use into ``tpu_joints_torch/_build/`` (keyed by a hash of
-the source and flags) and bound with ctypes -- no ninja, no PyTorch headers.
+Counterpart of ``tpu_joints/neighbors/pallas_knn.py::knn_pallas``: K1 is
+its k=1 mode (``csrc/nn1.cu``), K2 its 2 <= k <= 32 mode (``csrc/knnk.cu``).
+Each source is compiled with nvcc for ``sm_90a`` on first use into
+``tpu_joints_torch/_build/`` (keyed by a hash of the source and flags) and
+bound with ctypes -- no ninja, no PyTorch headers. :func:`build_all` starts
+one nvcc per source at once.
 
-Contract (both versions): distance in difference form
-``((dx²+dy²)+dz²)+pen`` with ``pen`` = 0 on valid sources and 3e38 on masked
-ones; ties go to the lowest source index; a row with no valid source gets
-``(3e38, 0)``. Returns ``(dist_sq f32[M, 1], idx i32[M, 1])``.
+Contract (kernels and plain versions): distance in difference form
+``((dx²+dy²)+dz²)+pen`` with ``pen`` = 0 on valid sources and 3e38 on
+masked ones; the k smallest per row in ascending order, ties to the lowest
+source index; a slot without a valid source is ``(3e38, 0)``. Returns
+``(dist_sq f32[M, k], idx i32[M, k])``.
 
-``nn1`` picks by the query tensor's device only: CPU tensors take the plain
-version :func:`nn1_reference`, CUDA tensors launch the kernel (a failed build
-or launch raises). ``nn1.launches`` counts kernel launches.
+``nn1`` and ``knnk`` pick by the query tensor's device only: CPU tensors
+take the plain versions :func:`nn1_reference` / :func:`knnk_reference`,
+CUDA tensors launch the kernel (a failed build or launch raises).
+``nn1.launches`` and ``knnk.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -30,13 +34,20 @@ from typing import Optional, Tuple
 import torch
 
 INF = 3.0e38
+MAX_K = 32                      # K2's largest k (the TPU kernel's range)
 
-_SRC = Path(__file__).resolve().parent / "csrc" / "nn1.cu"
+_CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-# query rows per block of the plain version: bounds its [rows, N] temporaries
+# query rows per block of the plain K1: bounds its [rows, N] temporaries
 _ROWS = 4096
+# elements per [rows, N] block of the plain K2 (its sort keeps several)
+_BLOCK_ELEMS = 1 << 24
 _NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# kernel -> (C entry point, its argument types)
+_ENTRY = {"nn1": ("tj_nn1", [_P] * 5 + [_I, _I, _P]),
+          "knnk": ("tj_knnk", [_P] * 5 + [_I, _I, _I, _P])}
 _build_lock = threading.Lock()
 
 
@@ -52,76 +63,136 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path() -> Path:
-    """Where the shared library for the current source and flags lives."""
-    h = hashlib.sha256(_SRC.read_bytes())
+def _library_path(name: str) -> Path:
+    """Where the shared library for kernel ``name``'s source and flags lives."""
+    h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
     h.update(" ".join(_NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"nn1_{h.hexdigest()[:16]}.so"
+    return _BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+
+
+def _compile(names) -> None:
+    """Build every named kernel whose library is missing, one nvcc process
+    each, all started together. Raises with the compiler's output."""
+    todo = [n for n in names if not _library_path(n).exists()]
+    if not todo:
+        return
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    jobs = []
+    for name in todo:
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
+        os.close(fd)
+        cmd = [nvcc, *_NVCC_FLAGS, "-o", tmp, str(_CSRC / f"{name}.cu")]
+        jobs.append((name, tmp, cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for name, tmp, cmd, proc in jobs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                          f"{out}\n{err}")
+        else:
+            os.replace(tmp, _library_path(name))
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and bind the kernel's C launcher.
+def load_library(name: str = "nn1") -> ctypes.CDLL:
+    """Build (once per source hash) and bind kernel ``name``'s C launcher.
 
     Raises ``RuntimeError`` with the compiler's output if nvcc fails.
     """
     with _build_lock:
-        lib_path = _library_path()
-        if not lib_path.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-            os.close(fd)
-            cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, str(_SRC)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                os.unlink(tmp)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
-            os.replace(tmp, lib_path)
-        lib = ctypes.CDLL(str(lib_path))
-    lib.tj_nn1.restype = ctypes.c_int
-    lib.tj_nn1.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_int,
-                                                   ctypes.c_void_p]
+        _compile([name])
+        lib = ctypes.CDLL(str(_library_path(name)))
+    entry, argtypes = _ENTRY[name]
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    fn.argtypes = argtypes
     return lib
 
 
-def _check(query: torch.Tensor, source: torch.Tensor,
+def build_all() -> None:
+    """Build every kernel of this module in parallel and bind them."""
+    with _build_lock:
+        _compile(_ENTRY)
+    for name in _ENTRY:
+        load_library(name)
+
+
+def _check(name: str, query: torch.Tensor, source: torch.Tensor,
            source_mask: Optional[torch.Tensor]) -> torch.Tensor:
     if query.ndim != 2 or query.shape[1] != 3 or source.ndim != 2 \
             or source.shape[1] != 3:
-        raise ValueError(f"nn1 takes [M, 3] and [N, 3] points, got "
+        raise ValueError(f"{name} takes [M, 3] and [N, 3] points, got "
                          f"{tuple(query.shape)} and {tuple(source.shape)}")
     if query.dtype != torch.float32 or source.dtype != torch.float32:
-        raise TypeError("nn1 takes float32 points")
+        raise TypeError(f"{name} takes float32 points")
     if source.shape[0] == 0:
-        raise ValueError("nn1 needs at least one source point")
+        raise ValueError(f"{name} needs at least one source point")
     if source_mask is None:
         source_mask = torch.ones(source.shape[0], dtype=torch.bool,
                                  device=source.device)
     if source_mask.shape != (source.shape[0],) or source_mask.dtype != torch.bool:
         raise ValueError("source_mask must be bool[N]")
     if not (query.device == source.device == source_mask.device):
-        raise ValueError("nn1 inputs must share one device")
+        raise ValueError(f"{name} inputs must share one device")
     return source_mask
+
+
+def _launch(wrapper, query: torch.Tensor, source: torch.Tensor,
+            source_mask: torch.Tensor, k: int
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel of ``wrapper`` (``nn1`` or ``knnk``) on the current
+    stream, raise if it is refused, and count the launch on the wrapper."""
+    name = wrapper.__name__
+    if query.device.type != "cuda":
+        raise ValueError(f"{name} runs on cpu or cuda, not {query.device}")
+    lib = load_library(name)
+    q = query.contiguous()
+    s = source.contiguous()
+    m = source_mask.contiguous().view(torch.uint8)
+    M, N = q.shape[0], s.shape[0]
+    out_d = torch.empty((M, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty((M, k), dtype=torch.int32, device=q.device)
+    if M == 0:
+        return out_d, out_i
+    args = [q.data_ptr(), s.data_ptr(), m.data_ptr(), out_d.data_ptr(),
+            out_i.data_ptr(), M, N] + ([k] if name == "knnk" else [])
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, _ENTRY[name][0])(*args, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
+    wrapper.launches += 1
+    return out_d, out_i
+
+
+def _penalty(source_mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(source_mask, 0.0, INF).to(torch.float32)
+
+
+def _difference_form(q: torch.Tensor, source: torch.Tensor,
+                     pen: torch.Tensor) -> torch.Tensor:
+    """[rows, N] ((dx²+dy²)+dz²)+pen, rounded op by op like the kernels."""
+    dx = q[:, 0:1] - source[:, 0]
+    dy = q[:, 1:2] - source[:, 1]
+    dz = q[:, 2:3] - source[:, 2]
+    return dx * dx + dy * dy + dz * dz + pen
 
 
 def nn1_reference(query: torch.Tensor, source: torch.Tensor,
                   source_mask: Optional[torch.Tensor] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the kernel, op by op the same arithmetic."""
-    source_mask = _check(query, source, source_mask)
-    pen = torch.where(source_mask, 0.0, INF).to(torch.float32)
-    sx, sy, sz = source[:, 0], source[:, 1], source[:, 2]
+    """Plain PyTorch version of K1, op by op the same arithmetic."""
+    source_mask = _check("nn1", query, source, source_mask)
+    pen = _penalty(source_mask)
     ds, js = [], []
     for r in range(0, query.shape[0], _ROWS):
-        q = query[r:r + _ROWS]
-        dx = q[:, 0:1] - sx
-        dy = q[:, 1:2] - sy
-        dz = q[:, 2:3] - sz
-        d = dx * dx + dy * dy + dz * dz + pen
-        v, a = d.min(dim=1)          # first index of the minimum
-        ds.append(v)
+        v, a = _difference_form(query[r:r + _ROWS], source, pen).min(dim=1)
+        ds.append(v)                 # first index of the minimum
         js.append(a)
     if not ds:
         z = query.new_zeros((0, 1))
@@ -137,28 +208,58 @@ def nn1(query: torch.Tensor, source: torch.Tensor,
         source_mask: Optional[torch.Tensor] = None
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Nearest valid source per query row: K1 on CUDA, plain on the CPU."""
-    source_mask = _check(query, source, source_mask)
+    source_mask = _check("nn1", query, source, source_mask)
     if query.device.type == "cpu":
         return nn1_reference(query, source, source_mask)
-    if query.device.type != "cuda":
-        raise ValueError(f"nn1 runs on cpu or cuda, not {query.device}")
-    lib = load_library()
-    q = query.contiguous()
-    s = source.contiguous()
-    m = source_mask.contiguous().view(torch.uint8)
-    M, N = q.shape[0], s.shape[0]
-    out_d = torch.empty((M, 1), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((M, 1), dtype=torch.int32, device=q.device)
-    if M == 0:
-        return out_d, out_i
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        rc = lib.tj_nn1(q.data_ptr(), s.data_ptr(), m.data_ptr(),
-                        out_d.data_ptr(), out_i.data_ptr(), M, N, stream)
-    if rc != 0:
-        raise RuntimeError(f"nn1 kernel launch failed: cudaError_t {rc}")
-    nn1.launches += 1
-    return out_d, out_i
+    return _launch(nn1, query, source, source_mask, 1)
 
 
 nn1.launches = 0
+
+
+def _check_k(k: int) -> None:
+    if not 2 <= k <= MAX_K:
+        raise ValueError(f"knnk takes 2 <= k <= {MAX_K}, got k={k}")
+
+
+def knnk_reference(query: torch.Tensor, source: torch.Tensor, k: int,
+                   source_mask: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K2: the same distances, op by op, then the
+    first k of a stable sort of each row (ties to the lowest index)."""
+    _check_k(k)
+    source_mask = _check("knnk", query, source, source_mask)
+    pen = _penalty(source_mask)
+    M, N = query.shape[0], source.shape[0]
+    kk = min(k, N)
+    rows = max(1, _BLOCK_ELEMS // N)
+    ds, js = [], []
+    for r in range(0, M, rows):
+        d = _difference_form(query[r:r + rows], source, pen)
+        v, a = torch.sort(d, dim=1, stable=True)
+        ds.append(v[:, :kk])
+        js.append(a[:, :kk])
+    v = torch.cat(ds) if ds else query.new_zeros((0, kk))
+    a = torch.cat(js) if js else query.new_zeros((0, kk), dtype=torch.int64)
+    if kk < k:                       # fewer sources than slots
+        v = torch.cat([v, v.new_full((M, k - kk), INF)], 1)
+        a = torch.cat([a, a.new_zeros((M, k - kk))], 1)
+    take = v < INF                   # the kernel's strict '<' against (3e38, 0)
+    dist = torch.where(take, v, torch.full_like(v, INF))
+    idx = torch.where(take, a, torch.zeros_like(a)).to(torch.int32)
+    return dist, idx
+
+
+def knnk(query: torch.Tensor, source: torch.Tensor, k: int,
+         source_mask: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest valid sources per query row, ascending, 2 <= k <= 32: K2 on
+    CUDA, plain on the CPU."""
+    _check_k(k)
+    source_mask = _check("knnk", query, source, source_mask)
+    if query.device.type == "cpu":
+        return knnk_reference(query, source, k, source_mask)
+    return _launch(knnk, query, source, source_mask, k)
+
+
+knnk.launches = 0

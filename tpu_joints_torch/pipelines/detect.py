@@ -1,16 +1,25 @@
-"""Raw organized frame → 6D pose (counterpart of
-``tpu_joints/pipelines/detect.py``; the organized main path).
+"""Scene → 6D pose (counterpart of ``tpu_joints/pipelines/detect.py``).
 
-  frame → ingest (tile select + moment normals) → uniform keypoints
-        → one shared k_max radius gather → SHOT + BOARD frames
-        → match against every bank view in one product → Hough per view
-        → view-grouped candidate cut → two-tier ICP (k=1 NN kernel)
-        → coverage-dominant ranking + coverage gate → composed pose + OBB
+Two entry points share everything after the scene features:
 
-No host synchronisation happens between the frame and the result: shapes
-are fixed by the config, every branch is on configuration or on host facts
-about the bank (``ModelBank.has_model``), and indexing with a computed
-index goes through gathers.
+* ``detect_organized`` — raw organized frame → ingest (tile select +
+  moment normals) → uniform keypoints → one shared k_max radius gather →
+  SHOT + BOARD frames;
+* ``detect`` — an unorganized cloud (the CLI's file-driven flow) → kNN
+  normals (kernel K2) → [region-growing crop over a K2 kNN graph +
+  per-cluster curvature filter] → the same keypoints and features;
+
+then match against every bank view in one product (1-NN gate or 2-NN
+ratio) → Hough per view → view-grouped candidate cut → two-tier ICP
+(kernel K1) → coverage-dominant ranking + coverage gate → composed pose +
+OBB (of the whole aligned view, or of its largest smooth cluster: K2 again).
+
+``detect_organized`` never synchronises with the host: shapes are fixed by
+the config, every branch is on configuration or on host facts about the
+bank (``ModelBank.has_model``), and indexing with a computed index goes
+through gathers. The region growing of ``detect``'s crop and of the
+clustered OBB reads its convergence flag on the host once every 8 sweeps
+(``segment/region_growing.py``); nothing else in ``detect`` does.
 """
 from __future__ import annotations
 
@@ -25,6 +34,7 @@ from tpu_joints_torch.core.ops import take, top_k
 from tpu_joints_torch.core.transforms import (compose, invert_rigid,
                                               transform_points)
 from tpu_joints_torch.features.lrf import board_lrf
+from tpu_joints_torch.features.normals import estimate_normals
 from tpu_joints_torch.features.shot import compute_shot
 from tpu_joints_torch.filters.filters import compact_cloud, uniform_sample_mask
 from tpu_joints_torch.modelbank.bank import ModelBank
@@ -33,7 +43,10 @@ from tpu_joints_torch.pipelines.ingest import ingest_organized_blocks
 from tpu_joints_torch.recognize.hough import Instances, hough_group
 from tpu_joints_torch.recognize.icp import icp_multi, scene_coverage_multi
 from tpu_joints_torch.recognize.matching import Correspondences
-from tpu_joints_torch.recognize.obb import OBB, oriented_bounding_box
+from tpu_joints_torch.recognize.obb import (OBB, oriented_bounding_box,
+                                            oriented_bounding_box_clustered)
+from tpu_joints_torch.segment.region_growing import (cluster_curvature_filter,
+                                                     region_growing)
 
 _BIG = 3.0e38
 
@@ -68,15 +81,58 @@ class DetectionResult(NamedTuple):
 
 
 def prepare_scene(scene: Cloud, cfg: DetectionConfig,
-                  normals: torch.Tensor) -> SceneFeatures:
-    """Organized-branch scene features: uniform keypoints → SHOT + voting
-    frames, sharing one radius gather when descriptor and frames use the
-    same radius and width. ``normals`` come from the organized ingest."""
-    if cfg.descriptor != "shot" or cfg.keypoints != "uniform":
-        raise NotImplementedError("only SHOT with uniform keypoints is ported")
-    if cfg.segment_scene or cfg.remove_plane:
-        raise NotImplementedError("the scene crop chain is not ported yet")
-    keep = uniform_sample_mask(scene, cfg.scene_ss)
+                  viewpoint: Optional[torch.Tensor] = None,
+                  normals: Optional[torch.Tensor] = None,
+                  curvature: Optional[torch.Tensor] = None,
+                  key_select: Optional[torch.Tensor] = None) -> SceneFeatures:
+    """Normals → [region-growing crop] → keypoints → SHOT + voting frames,
+    sharing one radius gather when descriptor and frames use the same
+    radius and width.
+
+    Pass ``normals``/``curvature`` to skip the kNN estimate (the organized
+    ingest computes them on the sensor grid); ``key_select`` (bool[N])
+    replaces the uniform keypoint sampler.
+    """
+    if cfg.descriptor != "shot":
+        raise NotImplementedError(
+            f"descriptor {cfg.descriptor!r} is not ported yet (ROADMAP "
+            "queue 1 item 12)")
+    if normals is None or curvature is None:
+        if cfg.normal_radius > 0.0:
+            raise NotImplementedError("radius normals are not ported yet "
+                                      "(ROADMAP queue 1 item 12)")
+        if cfg.normal_anchors > 0:
+            raise NotImplementedError("anchored normals are not ported yet "
+                                      "(ROADMAP queue 1 item 14)")
+        normals, curvature = estimate_normals(scene, k=cfg.normal_k,
+                                              viewpoint=viewpoint)
+    if cfg.remove_plane:
+        raise NotImplementedError("the RANSAC plane removal is not ported yet "
+                                  "(ROADMAP queue 1 item 9)")
+    if cfg.segment_scene:
+        if cfg.rg_backend == "voxel":
+            raise NotImplementedError("the voxel region growing is not ported "
+                                      "yet (ROADMAP queue 1 item 14)")
+        if cfg.rg_backend != "graph":
+            raise ValueError(f"unknown rg_backend {cfg.rg_backend!r}")
+        clusters = region_growing(
+            scene, normals, curvature, k=min(30, cfg.normal_k),
+            smoothness_deg=cfg.rg_smoothness_deg,
+            curvature_threshold=cfg.rg_curvature,
+            min_cluster_size=cfg.rg_min_cluster, max_edge=cfg.rg_max_edge)
+        scene = scene.with_mask(cluster_curvature_filter(
+            clusters, curvature, scene.mask, cfg.cluster_max_curvature))
+
+    if key_select is not None:
+        keep = key_select & scene.mask
+    elif cfg.keypoints == "iss":
+        raise NotImplementedError("ISS keypoints are not ported yet (ROADMAP "
+                                  "queue 1 item 14)")
+    elif cfg.keypoints == "lattice":
+        raise NotImplementedError("lattice keypoints are not ported yet "
+                                  "(ROADMAP queue 1 item 15)")
+    else:
+        keep = uniform_sample_mask(scene, cfg.scene_ss)
     keys, kidx = compact_cloud(scene, keep, cfg.scene_key_capacity)
     shared = None
     if (cfg.rf_frames == "board" and cfg.rf_rad == cfg.descr_rad
@@ -122,9 +178,9 @@ def match_bank(scene_desc: torch.Tensor, scene_valid: torch.Tensor,
                bank_desc: torch.Tensor, bank_valid: torch.Tensor,
                cfg: DetectionConfig) -> Correspondences:
     """Nearest bank keypoint per scene keypoint and view, from one
-    [Ms, V·Mk] descriptor-distance product; fields are [V, Ms]."""
-    if cfg.match_mode != "nn":
-        raise NotImplementedError(f"match_mode {cfg.match_mode!r} is not ported yet")
+    [Ms, V·Mk] descriptor-distance product, gated by ``cfg.match_mode``
+    ("nn": absolute threshold; "ratio": d1/d2 <= τ over the two nearest,
+    in ``lax.top_k``'s order); fields are [V, Ms]."""
     V, Mk, D = bank_desc.shape
     flat = bank_desc.reshape(V * Mk, D)
     s2 = (scene_desc * scene_desc).sum(-1, keepdim=True)
@@ -132,8 +188,18 @@ def match_bank(scene_desc: torch.Tensor, scene_valid: torch.Tensor,
     d = s2 + b2[None, :] - 2.0 * (scene_desc @ flat.T)
     d = torch.clamp_min(d, 0.0).reshape(-1, V, Mk)
     d = torch.where(bank_valid[None], d, _BIG)
-    d1, idx = d.min(dim=-1)                       # first index of the minimum
-    ok = scene_valid[:, None] & (d1 < cfg.match_threshold)
+    if cfg.match_mode == "nn":
+        d1, idx = d.min(dim=-1)                   # first index of the minimum
+        ok = scene_valid[:, None] & (d1 < cfg.match_threshold)
+    elif cfg.match_mode == "ratio":
+        neg2, idx2 = top_k(-d, 2)                 # [Ms, V, 2], ties to low index
+        d1, d2 = -neg2[..., 0], -neg2[..., 1]
+        idx = idx2[..., 0]
+        ok = (scene_valid[:, None]
+              & (d1 <= cfg.ratio * cfg.ratio * torch.clamp_min(d2, 1e-20))
+              & (d2 < 1e30))
+    else:
+        raise ValueError(f"unknown match mode {cfg.match_mode!r}")
     return Correspondences(model_idx=idx.T, valid=ok.T, dist_sq=d1.T)
 
 
@@ -164,9 +230,9 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
                      cfg: DetectionConfig) -> DetectionResult:
     """Candidate cut → (two-tier) ICP → full-CAD ranking with scene
     coverage → winner, acceptance gates, OBB."""
-    if cfg.hv_enabled or cfg.obb_largest_cluster or cfg.peak_grouped_candidates:
-        raise NotImplementedError("HV, clustered OBB and the peak-grouped "
-                                  "cut are not ported yet")
+    if cfg.hv_enabled or cfg.peak_grouped_candidates:
+        raise NotImplementedError("HV and the peak-grouped cut are not "
+                                  "ported yet (ROADMAP queue 1 item 13)")
     dev = inst.votes.device
     V, P = inst.votes.shape
     C = min(cfg.max_candidates, V * P)
@@ -301,7 +367,12 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
     aligned = Cloud(xyz=transform_points(view_xyz, view_pose),
                     mask=take(bank.view_mask, view_idx),
                     rgb=torch.zeros_like(view_xyz))
-    box = oriented_bounding_box(aligned)
+    if cfg.obb_largest_cluster:
+        # the reference's OBB: box the aligned view's dominant smooth cluster
+        box = oriented_bounding_box_clustered(
+            aligned, min_cluster_size=cfg.rg_min_cluster)
+    else:
+        box = oriented_bounding_box(aligned)
 
     metrics = {
         "scene_points": feats.cloud.count(),
@@ -337,6 +408,31 @@ def _tier_cfg(bank: ModelBank, cfg: DetectionConfig) -> DetectionConfig:
     return cfg
 
 
+def _check_devices(dev: torch.device, *tensors) -> None:
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"input on {t.device}, bank on {dev}")
+
+
+def detect(scene: Cloud, bank: ModelBank,
+           cfg: DetectionConfig = DetectionConfig(),
+           viewpoint: Optional[torch.Tensor] = None,
+           scene_normals: Optional[torch.Tensor] = None,
+           scene_curvature: Optional[torch.Tensor] = None) -> DetectionResult:
+    """One unorganized scene cloud → best 6D pose (plus all candidates).
+
+    Every tensor argument must live on the bank's device; the chain runs
+    there. Normals and curvature are estimated (k = ``cfg.normal_k``)
+    unless both are given.
+    """
+    _check_devices(bank.device, scene.xyz, scene.mask, viewpoint,
+                   scene_normals, scene_curvature)
+    cfg = _tier_cfg(bank, cfg)
+    feats = prepare_scene(scene, cfg, viewpoint, scene_normals,
+                          scene_curvature)
+    return detect_with_features(feats, bank, cfg)
+
+
 def detect_organized(
     xyz_img: torch.Tensor,
     valid: torch.Tensor,
@@ -352,17 +448,17 @@ def detect_organized(
 
     Every tensor argument must live on the bank's device; the chain runs
     there. Returns ``(DetectionResult, n_selected)``. The segmented crop
-    chain (``cfg.segment_scene`` / ``cfg.remove_plane``) is not ported yet:
-    ``prepare_scene`` raises on it.
+    chain (``cfg.segment_scene`` / ``cfg.remove_plane``, the organized
+    front end's own crop) is not ported yet.
     """
-    dev = bank.device
-    for t in (xyz_img, valid, crop_lo, crop_hi, viewpoint):
-        if t is not None and t.device != dev:
-            raise ValueError(f"input on {t.device}, bank on {dev}")
+    _check_devices(bank.device, xyz_img, valid, crop_lo, crop_hi, viewpoint)
+    if cfg.segment_scene or cfg.remove_plane:
+        raise NotImplementedError("the organized segmented chain is not "
+                                  "ported yet (ROADMAP queue 1 item 9)")
     cfg = _tier_cfg(bank, cfg)
-    scene, normals, _, n_sel = ingest_organized_blocks(
+    scene, normals, curvature, n_sel = ingest_organized_blocks(
         xyz_img, valid, block=block, half_window=half_window,
         capacity=cfg.scene_capacity, crop_lo=crop_lo, crop_hi=crop_hi,
         viewpoint=viewpoint)
-    feats = prepare_scene(scene, cfg, normals)
+    feats = prepare_scene(scene, cfg, viewpoint, normals, curvature)
     return detect_with_features(feats, bank, cfg), n_sel

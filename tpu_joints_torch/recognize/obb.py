@@ -1,5 +1,7 @@
 """PCA oriented bounding box + folded Euler angles (counterpart of
-``tpu_joints/recognize/obb.py::oriented_bounding_box``)."""
+``tpu_joints/recognize/obb.py``): the box of a whole cloud, or of its
+largest smooth cluster (k=30 normals and region growing, both on kernel
+K2)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -36,3 +38,26 @@ def oriented_bounding_box(cloud: Cloud) -> OBB:
     euler = fold_euler_90(quaternion_to_euler(rotation_from_matrix_to_quaternion(R)))
     return OBB(position=position, rotation=R, extents=hi - lo, euler=euler,
                centroid=centroid)
+
+
+def oriented_bounding_box_clustered(cloud: Cloud, k: int = 30,
+                                    smoothness_deg: float = 5.0,
+                                    curvature_threshold: float = 5.0,
+                                    min_cluster_size: int = 50) -> OBB:
+    """OBB of the largest smooth cluster of ``cloud``, the reference's
+    pre-step: re-estimate k=30 normals on the aligned model, region-grow,
+    box the dominant cluster only (the first largest, by label). Falls back
+    to the whole cloud when no cluster reaches ``min_cluster_size``."""
+    from tpu_joints_torch.features.normals import estimate_normals
+    from tpu_joints_torch.segment.region_growing import region_growing
+
+    normals, curvature = estimate_normals(cloud, k=k)
+    clusters = region_growing(cloud, normals, curvature, k=k,
+                              smoothness_deg=smoothness_deg,
+                              curvature_threshold=curvature_threshold,
+                              min_cluster_size=min_cluster_size)
+    best_label = torch.argmax(clusters.sizes)      # first maximum
+    in_best = clusters.labels == best_label.to(torch.int32)
+    has_cluster = (in_best & cloud.mask).any()
+    keep = torch.where(has_cluster, in_best & cloud.mask, cloud.mask)
+    return oriented_bounding_box(cloud.with_mask(keep))

@@ -1,10 +1,11 @@
 """Synthetic frames and the bench joint, in numpy (no JAX).
 
 Copies of ``tpu_joints/serve/depth.py::pixel_scales`` /
-``raycast_cylinders`` and of ``bench.py``'s ``_pose``, ``_bench_pose``,
-``_joint_parts``/``_joint_model``, ``_CYLINDERS``, ``_TABLE`` and ``_frame``
-recipe, so a host without JAX can build the same scenes. The tests hold
-every function here equal to its original.
+``raycast_cylinders``, of ``bench.py``'s ``_pose``, ``_bench_pose``,
+``_joint_parts``/``_joint_model``, ``_CYLINDERS``, ``_TABLE``, ``_frame``
+and ``_make_config`` recipe, and of the CLI's scene recipe
+(``tpu_joints/cli/main.py::_detect_one``), so a host without JAX can build
+the same scenes. The tests hold every function here equal to its original.
 """
 from __future__ import annotations
 
@@ -200,3 +201,30 @@ def bench_bank_kwargs(cfg) -> dict:
 # bench.py's crop box around the joint (the PassThrough work volume)
 CROP_LO = np.array([-0.45, -0.5, 0.5], np.float32)
 CROP_HI = np.array([0.5, 0.45, 1.55], np.float32)
+
+
+def scene_points(pts: np.ndarray, capacity: int) -> np.ndarray:
+    """The CLI's scene recipe before ``make_cloud(capacity=capacity)``: the
+    finite points, strided evenly down to ``capacity`` when there are
+    more."""
+    pts = np.asarray(pts, np.float32).reshape(-1, 3)
+    pts = pts[np.isfinite(pts).all(axis=1)]
+    if pts.shape[0] > capacity:
+        idx = np.linspace(0, pts.shape[0] - 1, capacity).astype(np.int64)
+        pts = pts[idx]
+    return pts
+
+
+def generic_config():
+    """The generic ``detect`` path's full-size configuration:
+    ``bench_config()`` with its widths unchanged (2560 scene lanes, 512
+    keys, k_max 96, 16 candidates, two tiers) and the structure of the
+    reference's SHOT_demo flow (``tpu_joints/config.py::SHOT_DEMO``):
+    region-growing crop over the kNN graph, ratio matching at τ = 1, the
+    OBB of the largest cluster, no plane removal."""
+    import dataclasses
+
+    return dataclasses.replace(
+        bench_config(), segment_scene=True, rg_backend="graph",
+        obb_largest_cluster=True, match_mode="ratio", ratio=1.0,
+        remove_plane=False)
