@@ -4,21 +4,37 @@
 Run from the repository root on a machine with one NVIDIA Hopper card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --against DIR
+
+``--against DIR`` also holds another version of the kernels against this
+one: DIR (a scratch directory, for example a revision's
+``tpu_joints_torch/neighbors/csrc`` written out with ``git archive``) holds
+its ``nn1.cu`` and ``knnk.cu`` and any headers they include. They are
+built into DIR with this tree's flags in phase 2, beside this tree's
+(ptxas's register and spill report of both is printed), checked bit for bit
+against the plain version at every timed shape and timed there in turns
+with this tree's kernels (other, this, this, other).
 
 Phases (any failure raises and the exit code is non-zero):
   1. device  — card name and power limit (nvidia-smi);
-  2. build   — compiles kernels K1 (nn1.cu) and K2 (knnk.cu) from the
-               checkout, one nvcc each, started together;
-  3. kernels — K1 and K2 against their plain PyTorch versions on the card
-               at the paths' shapes and at edge cases; K1 timed;
+  2. build   — compiles kernels K1 (nn1.cu) and K2 (knnk.cu, both with
+               the shared knn_split.cuh) from the checkout, one nvcc each,
+               started together (with --against, the other version's too);
+  3. kernels — K1 and K2 against their plain PyTorch versions on the card,
+               bit for bit, at the paths' shapes, at edge cases, at the
+               orders and ties that stress the split sweep and the lane merge
+               and at shapes that straddle the split (the inputs of
+               tpu_joints_torch/neighbors/knn_cases.py); K1 timed at its
+               three path shapes (ICP, both coverage tiers);
   4. bank    — the 42-view SHOT bank of bench.py built on the card: K2
-               launches counted (the k=16 normals, one per view) and every
-               launch's inputs rechecked against the plain version;
+               launches counted (the k=16 normals, one per view), every
+               launch's inputs rechecked against the plain version, and K2
+               timed on the first launch's inputs at 1024 and 2048 lanes;
   5. organized path — detect_organized on a 640×480 frame of the bench
-               joint with bench.py's scene_latency config: K1 launches and
-               host syncs over one run (none allowed), latency over 10
-               runs, gate < 1° / < 5 mm, and the same chain at small size
-               against the CPU path;
+               joint with bench.py's scene_latency config: K1 launches (by
+               shape) and host syncs over one run (none allowed), latency
+               over 10 runs, gate < 1° / < 5 mm, and the same chain at small
+               size against the CPU path;
   6. generic path — detect on the same frame's points as an unorganized
                2560-point cloud (the CLI's recipe) with the SHOT_demo-shaped
                config: K1 and K2 launches and host syncs over one run (syncs
@@ -27,9 +43,16 @@ Phases (any failure raises and the exit code is non-zero):
                clustered-OBB shapes against its plain version and
                cdist+topk, latency over 10 runs, the gate, and the same path
                at small size against the CPU path.
-The kernels JSON line and then the card's nvidia-smi name and power limit
-come before the last line, which is the JSON result.
+Every timing gives the kernel, its plain version and cdist+topk (CUDA
+events and profiler device time) beside the bound and the shape's launches
+per bank build, organized frame and generic frame. The kernels JSON line
+(per kernel: its main shape's numbers, and "timings" for every timed shape)
+and then the card's nvidia-smi name and power limit come before the last
+line, which is the JSON result.
 """
+import argparse
+import collections
+import ctypes
 import dataclasses
 import json
 import math
@@ -37,6 +60,7 @@ import statistics
 import subprocess
 import time
 import warnings
+from pathlib import Path
 
 # H100 SXM published peaks at 700 W (NVIDIA data sheet): fp32 outside the
 # tensor cores, and HBM3 bandwidth
@@ -52,7 +76,7 @@ def _err(T, G):
     return rot, float(np.linalg.norm(T[:3, 3] - G[:3, 3]))
 
 
-def _cuda_ms(fn, reps):
+def _event_ms(fn, reps=20):
     """Median of ``reps`` CUDA-event timings of ``fn`` (after one warm-up)."""
     import torch
 
@@ -69,86 +93,212 @@ def _cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def _device_ms(fn, reps):
+def _device_ms(fn, reps=20):
     """Device time per call of ``fn``: the profiler's sum of kernel time
-    over ``reps`` calls (host launch gaps excluded), after one warm-up."""
+    over ``reps`` calls (host launch gaps excluded), after one warm-up. A
+    profile that caught no device time at all is taken again, up to three
+    times, then raises."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
+    for _ in range(3):
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages())
-    return us / reps / 1000.0
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages())
+        if us > 0:
+            return us / reps / 1000.0
+    raise RuntimeError("the profiler caught no device time in three tries")
 
 
-def _bound(M, N, k):
+def _bound(M, N, n_valid, k):
     """(ms, what bounds it): the least time the card could take for an
-    exact kNN of M queries over N sources — each input read once (xyz
-    float32, mask byte), each output written once (float32 + int32 per
-    slot), 9 fp32 flops per (query, source) pair for the difference-form
-    distance — at the published peaks."""
-    t_bytes = (12 * M + 13 * N + 8 * M * k) / HBM_BYTES_PER_S
-    t_ops = 9 * M * N / FP32_FLOPS
+    exact kNN of M queries over N sources of which n_valid are valid — each
+    input read once (query xyz, the N mask bytes and the valid sources'
+    xyz, float32), each output written once (float32 + int32 per slot), 9
+    fp32 flops per (query, valid source) pair for the difference-form
+    distance (a masked source can never enter a list) — at the published
+    peaks."""
+    t_bytes = (12 * M + N + 12 * n_valid + 8 * M * k) / HBM_BYTES_PER_S
+    t_ops = 9 * M * n_valid / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
 
-def _time_knn(kernel, plain, q, s, m, k, card, label):
-    """CUDA-event and profiler times of a kernel, its plain version and
-    cdist+topk (two PyTorch calls, unmasked) on the same inputs."""
+def _start_other_build(other):
+    """Start one nvcc per source, all together, with this tree's flags and
+    ptxas's report: the other version's nn1.cu and knnk.cu into ``other``,
+    and this tree's again for the report alone. Returns the jobs."""
+    from tpu_joints_torch.neighbors import pallas_knn as pk
+
+    jobs = []
+    for tag, csrc in (("other", other), ("this", pk._CSRC)):
+        for name in pk._ENTRY:
+            out = other / f"{tag}_{name}.so"
+            cmd = [pk._nvcc(), *pk._NVCC_FLAGS, "-Xptxas", "-v", "-o",
+                   str(out), str(csrc / f"{name}.cu")]
+            jobs.append((tag, name, out, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+    return jobs
+
+
+def _finish_other_build(jobs, card):
+    """Wait for the builds of ``_start_other_build``, print ptxas's
+    register and spill lines, and bind the other version's C entry points:
+    {"nn1": fn, "knnk": fn}. Raises with the compiler's output."""
+    from tpu_joints_torch.neighbors import pallas_knn as pk
+
+    other = {}
+    for tag, name, out, proc in jobs:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {tag} {name}.cu:\n"
+                               f"{stdout}\n{stderr}")
+        for line in (stdout + stderr).splitlines():
+            if "registers" in line or "spill" in line or "Compiling" in line:
+                print(f"# ptxas {tag} {name}.cu: {line.strip()} {card}",
+                      flush=True)
+        if tag == "other":
+            entry, argtypes = pk._ENTRY[name]
+            fn = getattr(ctypes.CDLL(str(out)), entry)
+            fn.restype, fn.argtypes = ctypes.c_int, argtypes
+            other[name] = fn
+    return other
+
+
+def _other_call(fn, q, s, m, k):
+    """Launch the other version's kernel through its C entry point, on
+    contiguous inputs: the paths hand the kernels strided views (the
+    coverage's stride-sampled model), which only the wrapper copies."""
     import torch
 
+    q, s, m = q.contiguous(), s.contiguous(), m.contiguous()
+    M = q.shape[0]
+    d = torch.empty((M, k), dtype=torch.float32, device=q.device)
+    i = torch.empty((M, k), dtype=torch.int32, device=q.device)
+    args = [q.data_ptr(), s.data_ptr(), m.view(torch.uint8).data_ptr(),
+            d.data_ptr(), i.data_ptr(), M, s.shape[0]] + ([k] if k > 1 else [])
+    rc = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"the other version's launch failed: cudaError_t {rc}")
+    return d, i
+
+
+def _time_knn(pk, q, s, m, k, card, label, other=None):
+    """CUDA-event and profiler times of K1 (k = 1) or K2, its plain
+    version and cdist+topk (two PyTorch calls, unmasked) on the same inputs,
+    as one row of the kernels line. With ``other`` (the other version's
+    entry points), that version is first held against the plain version bit
+    for bit, then timed in turns with this one: other, this, this, other;
+    the row gives each one's median."""
+    import torch
+
+    if m is None:
+        m = torch.ones(s.shape[0], dtype=torch.bool, device=s.device)
+    if k == 1:
+        kernel, plain = pk.nn1, pk.nn1_reference
+    else:
+        def kernel(a, b, c):
+            return pk.knnk(a, b, k, c)
+
+        def plain(a, b, c):
+            return pk.knnk_reference(a, b, k, c)
     fns = {"kernel": lambda: kernel(q, s, m),
            "plain": lambda: plain(q, s, m),
            "cdist+topk": lambda: torch.cdist(q, s).topk(k, largest=False)}
-    ev = {n: _cuda_ms(f, 20) for n, f in fns.items()}
-    dv = {n: _device_ms(f, 20) for n, f in fns.items()}
-    bound_ms, bound_by = _bound(q.shape[0], s.shape[0], k)
-    print(f"# timing {label} {q.shape[0]}x{s.shape[0]} k={k}: median of 20 "
-          f"CUDA-event runs: " + ", ".join(f"{n} {v:.4f} ms" for n, v in ev.items())
-          + "; device time per call (profiler, 20 calls): "
-          + ", ".join(f"{n} {v:.4f} ms" for n, v in dv.items())
+    order = list(fns)
+    if other is not None:
+        fn = other["nn1" if k == 1 else "knnk"]
+        fns["other"] = lambda: _other_call(fn, q, s, m, k)
+        (d, i), (dr, ir) = fns["other"](), fns["plain"]()
+        if not (torch.equal(d, dr) and torch.equal(i, ir)):
+            raise RuntimeError(f"the other version disagrees with the plain "
+                               f"version ({label})")
+        order = ["other", "kernel", "kernel", "other", "plain", "cdist+topk"]
+    ev, dv = collections.defaultdict(list), collections.defaultdict(list)
+    for n in order:
+        ev[n].append(_event_ms(fns[n]))
+        dv[n].append(_device_ms(fns[n]))
+    n_valid = int(m.sum())
+    bound_ms, bound_by = _bound(q.shape[0], s.shape[0], n_valid, k)
+    print(f"# timing {label} {q.shape[0]}x{s.shape[0]} k={k} ({n_valid} of "
+          f"{s.shape[0]} sources valid): median of 20 CUDA-event runs, ms: "
+          + ", ".join(f"{n} " + " ".join(f"{v:.4f}" for v in vs)
+                      for n, vs in ev.items())
+          + "; device time per call (profiler, 20 calls), ms: "
+          + ", ".join(f"{n} " + " ".join(f"{v:.4f}" for v in vs)
+                      for n, vs in dv.items())
           + f"; bound {bound_ms:.5f} ms ({bound_by}) {card}", flush=True)
-    return ev, dv, bound_ms, bound_by
+    row = {"shape": [q.shape[0], s.shape[0], k], "label": label,
+           "n_valid": n_valid, "ms": statistics.median(ev["kernel"]),
+           "dev_ms": statistics.median(dv["kernel"]),
+           "plain_ms": ev["plain"][0], "plain_dev_ms": dv["plain"][0],
+           "cdist_topk_ms": ev["cdist+topk"][0],
+           "cdist_topk_dev_ms": dv["cdist+topk"][0], "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    if other is not None:
+        row.update(other_ms=statistics.median(ev["other"]),
+                   other_dev_ms=statistics.median(dv["other"]))
+    return row
 
 
 class _Recorder:
-    """Wraps ``bruteforce.knnk`` (K2's entry from ``knn``) and keeps every
-    call's inputs, so each launch of a path can be rechecked afterwards.
-    It launches nothing itself: the wrapped function counts the launches."""
+    """Wraps ``bruteforce.nn1`` and ``bruteforce.knnk`` (K1's and K2's
+    entries from ``knn``) and keeps every call's inputs as (query, source,
+    k, mask), so each launch of a path can be rechecked and timed
+    afterwards. It launches nothing itself: the wrapped functions count the
+    launches."""
 
     def __init__(self, bruteforce):
-        self.bf, self.real, self.calls = bruteforce, bruteforce.knnk, []
+        self.bf, self.calls = bruteforce, []
+        self.real = (bruteforce.nn1, bruteforce.knnk)
 
-    def __call__(self, query, source, k, source_mask=None):
+    def nn1(self, query, source, source_mask=None):
+        self.calls.append((query, source, 1, source_mask))
+        return self.real[0](query, source, source_mask)
+
+    def knnk(self, query, source, k, source_mask=None):
         self.calls.append((query, source, k, source_mask))
-        return self.real(query, source, k, source_mask)
+        return self.real[1](query, source, k, source_mask)
+
+    def k2_calls(self):
+        return [c for c in self.calls if c[2] > 1]
+
+    def shapes(self):
+        """Launches by shape: {(M, N, k): count}."""
+        return collections.Counter((q.shape[0], s.shape[0], k)
+                                   for q, s, k, _ in self.calls)
 
     def __enter__(self):
-        self.bf.knnk = self
+        self.bf.nn1, self.bf.knnk = self.nn1, self.knnk
         return self
 
     def __exit__(self, *exc):
-        self.bf.knnk = self.real
+        self.bf.nn1, self.bf.knnk = self.real
 
 
-def _check_k2(pk, q, s, k, m, label, card):
-    """K2 against its plain version on the same card inputs: 0 index
-    mismatches and 0.0 distance difference, ascending rows."""
+def _check_knn(pk, q, s, k, m, label, card):
+    """K1 (k = 1) or K2 against its plain version on the same card inputs:
+    equal bit for bit (``torch.equal`` on distances and indices, so 0 index
+    mismatches and 0.0 distance difference), ascending rows."""
     import torch
 
-    d, i = pk.knnk(q, s, k, m)
-    dr, ir = pk.knnk_reference(q, s, k, m)
+    if k == 1:
+        (d, i), (dr, ir) = pk.nn1(q, s, m), pk.nn1_reference(q, s, m)
+    else:
+        (d, i), (dr, ir) = pk.knnk(q, s, k, m), pk.knnk_reference(q, s, k, m)
     torch.cuda.synchronize()
     mism = int((i != ir).sum())
     err = float((d - dr).abs().max()) if d.numel() else 0.0
-    print(f"# K2 {q.shape[0]}x{s.shape[0]} k={k} ({label}): index mismatches "
-          f"{mism}, max |dist diff| {err:.3e} {card}", flush=True)
-    if mism or err > 0.0 or not bool((d[:, 1:] >= d[:, :-1]).all()):
-        raise RuntimeError(f"knnk disagrees with its plain version ({label})")
+    print(f"# K{min(k, 2)} {q.shape[0]}x{s.shape[0]} k={k} ({label}): index "
+          f"mismatches {mism}, max |dist diff| {err:.3e} {card}", flush=True)
+    if not (torch.equal(d, dr) and torch.equal(i, ir)) \
+            or not bool((d[:, 1:] >= d[:, :-1]).all()):
+        raise RuntimeError(f"{'nn1' if k == 1 else 'knnk'} disagrees with its "
+                           f"plain version ({label})")
     return err
 
 
@@ -260,6 +410,11 @@ def _count_syncs(fn):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", type=Path, metavar="DIR",
+                    help="directory with another version's nn1.cu and "
+                         "knnk.cu, timed in turns with this tree's")
+    args = ap.parse_args()
     import numpy as np
     import torch
 
@@ -269,6 +424,7 @@ def main() -> None:
     from tpu_joints_torch.core.cloud import make_cloud
     from tpu_joints_torch.modelbank.bank import build_bank
     from tpu_joints_torch.neighbors import bruteforce
+    from tpu_joints_torch.neighbors import knn_cases
     from tpu_joints_torch.neighbors import pallas_knn as pk
     from tpu_joints_torch.pipelines.detect import detect, detect_organized
     from tpu_joints_torch.segment import region_growing as rg
@@ -283,9 +439,15 @@ def main() -> None:
 
     # --- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
+    jobs = _start_other_build(args.against) if args.against else None
     pk.build_all()
     print(f"# phase 2 build: nn1.cu and knnk.cu compiled (in parallel) and "
           f"bound in {time.perf_counter() - t0:.3f} s {card}", flush=True)
+    other = _finish_other_build(jobs, card) if jobs else None
+    if other:
+        print(f"# phase 2 build: the other version ({args.against}) and "
+              f"ptxas's report done in {time.perf_counter() - t0:.3f} s {card}",
+              flush=True)
 
     # --- phase 3: kernels vs plain versions on the card --------------------
     g = torch.Generator().manual_seed(0)
@@ -296,25 +458,19 @@ def main() -> None:
     def msk(n, masked):
         return (torch.rand(n, generator=g) >= masked).to(dev)
 
-    max_err_k1 = 0.0
+    max_err = {1: 0.0, 2: 0.0}        # K1, K2
+
+    def check(q, s, k, m, label):
+        max_err[min(k, 2)] = max(max_err[min(k, 2)],
+                                 _check_knn(pk, q, s, k, m, label, card))
+
     for M, N, masked, label in [(8192, 2560, 0.0, "ICP"),
                                 (40960, 2048, 0.0, "tier-1 coverage"),
                                 (10240, 4096, 0.0, "tier-2 coverage"),
                                 (70, 100, 0.25, "25% of sources masked"),
                                 (5000, 3333, 0.1, "N not a multiple of the tile"),
                                 (64, 256, 1.0, "all sources masked")]:
-        q, s, m = pts(M), pts(N), msk(N, masked)
-        d, i = pk.nn1(q, s, m)
-        dr, ir = pk.nn1_reference(q, s, m)
-        torch.cuda.synchronize()
-        mism = int((i != ir).sum())
-        err = float((d - dr).abs().max())
-        max_err_k1 = max(max_err_k1, err)
-        print(f"# phase 3 K1 {M}x{N} ({label}): index mismatches {mism}, "
-              f"max |dist diff| {err:.3e} {card}", flush=True)
-        if mism or err > 0.0 or not bool(torch.isfinite(d).all()):
-            raise RuntimeError(f"nn1 disagrees with its plain version at {M}x{N}")
-    max_err_k2 = 0.0
+        check(pts(M), pts(N), 1, msk(N, masked), label)
     for M, N, k, masked, label in [
             (2560, 2560, 16, 0.0, "region-growing shape, random points"),
             (2560, 2560, 2, 0.0, "k = 2"),
@@ -325,7 +481,7 @@ def main() -> None:
             (5000, 3333, 16, 0.1, "N not a multiple of the tile"),
             (1001, 2048, 8, 0.0, "M not a multiple of the block")]:
         q, s, m = pts(M), pts(N), msk(N, masked)
-        max_err_k2 = max(max_err_k2, _check_k2(pk, q, s, k, m, label, card))
+        check(q, s, k, m, label)
         if label == "N < k" or masked == 1.0:
             d, i = pk.knnk(q, s, k, m)
             empty = slice(N, None) if masked < 1.0 else slice(None)
@@ -335,15 +491,31 @@ def main() -> None:
     # exact ties: every source twice, queries on sources; the lower index wins
     s = pts(512).repeat(2, 1)
     q = torch.cat([s[:256], pts(256)])
-    max_err_k2 = max(max_err_k2, _check_k2(
-        pk, q, s, 16, msk(1024, 0.0), "duplicated sources, exact ties", card))
+    check(q, s, 16, msk(1024, 0.0), "duplicated sources, exact ties")
     d, i = pk.knnk(q, s, 16, None)
     if not bool((i[:256, 0] == torch.arange(256, device=dev)).all()):
         raise RuntimeError("knnk does not break exact ties to the lowest index")
-    q, s = pts(8192), pts(2560)
-    m = torch.ones(2560, dtype=torch.bool, device=dev)
-    ev1, dv1, bound1, by1 = _time_knn(pk.nn1, pk.nn1_reference, q, s, m, 1,
-                                      card, "phase 3 K1 (ICP shape)")
+    # orders and sizes that stress the split sweep and the lane merge, for
+    # both kernels (sources approaching every query in scan order, all
+    # distances tied, a masked twin before each valid source, N = 1, N < k,
+    # N = 33), then M around a warp and N around a 32-lane split, and the
+    # clustered OBB's shape with 90% of the sources masked
+    def on_card(arrays):
+        return [torch.from_numpy(a).to(dev) for a in arrays]
+
+    for name, case in sorted(knn_cases.CASES.items()):
+        for k in (1, 2, 16, 32):
+            q, s, m = on_card(case(k))
+            check(q, s, k, m, f"{name}, k = {k}")
+    for M, N, k, masked in knn_cases.STRADDLE:
+        q, s, m = on_card(knn_cases.straddle(M, N, k, masked))
+        for kk in (1, k):
+            check(q, s, kk, m, f"straddling the split, {masked:.0%} masked")
+    timings = {1: [], 2: []}
+    for M, N, label in [(8192, 2560, "ICP"), (40960, 2048, "tier-1 coverage"),
+                        (10240, 4096, "tier-2 coverage")]:
+        timings[1].append(_time_knn(pk, pts(M), pts(N), msk(N, 0.0), 1, card,
+                                    f"phase 3 K1 ({label} shape)", other))
 
     # --- phase 4: the 42-view bank on the card ----------------------------
     cfg = syn.bench_config()
@@ -357,18 +529,23 @@ def main() -> None:
     torch.cuda.synchronize()
     bank_s = time.perf_counter() - t0
     bank_k2 = pk.knnk.launches
-    shapes = sorted({(c[0].shape[0], c[1].shape[0], c[2]) for c in rec.calls})
+    launches = {"bank": rec.shapes()}
     print(f"# phase 4 bank: {bank.n_views} views, desc {tuple(bank.desc.shape)}, "
           f"view capacity Nv {bank.view_xyz.shape[1]}, "
           f"{int(bank.key_valid.sum())} valid keys, built in {bank_s:.2f} s; "
-          f"K2 launched {bank_k2} times, at shapes (M, N, k) {shapes} {card}",
-          flush=True)
-    if bank_k2 != bank.n_views or len(rec.calls) != bank_k2:
+          f"K2 launched {bank_k2} times; launches by shape (M, N, k): "
+          f"{dict(sorted(launches['bank'].items()))} {card}", flush=True)
+    bank_calls = rec.k2_calls()
+    if bank_k2 != bank.n_views or len(bank_calls) != bank_k2:
         raise RuntimeError(f"bank build launched K2 {bank_k2} times, expected "
                            f"one per view ({bank.n_views})")
-    for n, (q, s, k, m) in enumerate(rec.calls):
-        max_err_k2 = max(max_err_k2, _check_k2(pk, q, s, k, m,
-                                               f"bank view {n} normals", card))
+    for n, (q, s, k, m) in enumerate(bank_calls):
+        check(q, s, k, m, f"bank view {n} normals")
+    for M in (1024, 2048):
+        q, s, k, m = next(c for c in bank_calls if c[0].shape[0] == M)
+        timings[2].append(_time_knn(pk, q, s, m, k, card,
+                                    f"phase 4 K2 (bank normals, {M} lanes)",
+                                    other))
 
     # --- phase 5: the organized path --------------------------------------
     T_gt = syn.bench_pose()
@@ -383,15 +560,19 @@ def main() -> None:
                                 half_window=5, crop_lo=lo, crop_hi=hi)
 
     pk.nn1.launches = pk.knnk.launches = 0
-    (res, n_sel), syncs = _count_syncs(run_org)
+    with _Recorder(bruteforce) as rec:
+        (res, n_sel), syncs = _count_syncs(run_org)
     org_k1, org_k2 = pk.nn1.launches, pk.knnk.launches
+    launches["organized"] = rec.shapes()
     print(f"# phase 5 organized path: nn1 launched {org_k1} times, knnk "
-          f"{org_k2} times in one detect_organized; host synchronisations "
-          f"flagged: {len(syncs)} {card}", flush=True)
+          f"{org_k2} times in one detect_organized; launches by shape (M, N, "
+          f"k): {dict(sorted(launches['organized'].items()))}; host "
+          f"synchronisations flagged: {len(syncs)} {card}", flush=True)
     for msg in sorted(set(syncs))[:5]:
         print(f"#   sync: {msg}", flush=True)
-    if org_k1 == 0:
-        raise RuntimeError("the organized path never launched kernel K1")
+    if org_k1 == 0 or org_k2 != 0:
+        raise RuntimeError(f"the organized path launched K1 {org_k1} and K2 "
+                           f"{org_k2} times; expected K1 >= 1 and K2 = 0")
     if syncs:
         raise RuntimeError("detect_organized synchronised with the host")
     (res, n_sel), times = _timed_runs(run_org)
@@ -412,13 +593,17 @@ def main() -> None:
         res, syncs = _count_syncs(run_gen)
     gen_k1, gen_k2 = pk.nn1.launches, pk.knnk.launches
     checks = rg.region_growing.host_checks
+    launches["generic"] = rec.shapes()
+    gen_calls = rec.k2_calls()
     print(f"# phase 6 generic path ({int(scene.mask.sum())} points): nn1 "
-          f"launched {gen_k1} times, knnk {gen_k2} times in one detect; host "
+          f"launched {gen_k1} times, knnk {gen_k2} times in one detect; "
+          f"launches by shape (M, N, k): "
+          f"{dict(sorted(launches['generic'].items()))}; host "
           f"synchronisations flagged: {len(syncs)}, region-growing host reads "
           f"(one per 8 sweeps): {checks} {card}", flush=True)
     for msg in sorted(set(syncs))[:5]:
         print(f"#   sync: {msg}", flush=True)
-    if gen_k1 == 0 or gen_k2 != 4 or len(rec.calls) != 4:
+    if gen_k1 == 0 or gen_k2 != 4 or len(gen_calls) != 4:
         raise RuntimeError(f"the generic path launched K1 {gen_k1} and K2 "
                            f"{gen_k2} times; expected K1 >= 1 and K2 = 4")
     if len(syncs) != checks:
@@ -426,20 +611,16 @@ def main() -> None:
                            f"growing schedule reads {checks} times")
     labels = ["scene normals", "region-growing graph", "clustered-OBB normals",
               "clustered-OBB graph"]
-    for (q, s, k, m), label in zip(rec.calls, labels):
-        max_err_k2 = max(max_err_k2, _check_k2(pk, q, s, k, m, label, card))
-    q, s, k, m = rec.calls[1]
-    ev2, dv2, bound2, by2 = _time_knn(
-        lambda a, b, c: pk.knnk(a, b, k, c),
-        lambda a, b, c: pk.knnk_reference(a, b, k, c), q, s, m, k, card,
-        "phase 6 K2 (region-growing graph)")
-    q, s, k, m = rec.calls[3]
+    for (q, s, k, m), label in zip(gen_calls, labels):
+        check(q, s, k, m, label)
+    q, s, k, m = gen_calls[1]
+    timings[2].append(_time_knn(pk, q, s, m, k, card,
+                                "phase 6 K2 (region-growing graph)", other))
+    q, s, k, m = gen_calls[3]
     nv = q.shape[0]
-    max_err_k2 = max(max_err_k2, _check_k2(
-        pk, pts(nv), pts(nv), k, msk(nv, 0.3), "OBB shape, random points", card))
-    _time_knn(lambda a, b, c: pk.knnk(a, b, k, c),
-              lambda a, b, c: pk.knnk_reference(a, b, k, c), q, s, m, k, card,
-              "phase 6 K2 (clustered-OBB graph)")
+    check(pts(nv), pts(nv), k, msk(nv, 0.3), "OBB shape, random points")
+    timings[2].append(_time_knn(pk, q, s, m, k, card,
+                                "phase 6 K2 (clustered-OBB graph)", other))
     res, times = _timed_runs(run_gen)
     _gate("phase 6 generic 640x480", res, T_gt, times, card,
           f"scene points after the crop {int(res.metrics['scene_points'])}, ")
@@ -447,21 +628,27 @@ def main() -> None:
     # --- both paths at small size, card vs CPU ----------------------------
     _small_runs(dev, det_cfg, gen_cfg, T_gt, card)
 
-    print(json.dumps({"kernels": [
-        {"name": "nn1", "route": "cuda",
-         "source": "tpu_joints_torch/neighbors/csrc/nn1.cu",
-         "replaces": "tpu_joints/neighbors/pallas_knn.py:59",
-         "launches": org_k1, "max_abs_err": max_err_k1,
-         "ms": ev1["kernel"], "plain_ms": ev1["plain"], "bound_ms": bound1,
-         "bound_by": by1, "library_ms": None,
-         "cdist_topk_ms": ev1["cdist+topk"]},
-        {"name": "knnk", "route": "cuda",
-         "source": "tpu_joints_torch/neighbors/csrc/knnk.cu",
-         "replaces": "tpu_joints/neighbors/pallas_knn.py:65",
-         "launches": gen_k2, "max_abs_err": max_err_k2,
-         "ms": ev2["kernel"], "plain_ms": ev2["plain"], "bound_ms": bound2,
-         "bound_by": by2, "library_ms": None,
-         "cdist_topk_ms": ev2["cdist+topk"]}]}))
+    # the top-level numbers of each kernel are those of its main shape
+    # (K1: ICP; K2: the region-growing graph); "timings" lists every shape
+    # with its launches per bank build, organized frame and generic frame
+    for row in timings[1] + timings[2]:
+        row["launches"] = {path: n[tuple(row["shape"])]
+                           for path, n in launches.items()}
+    main_row = {1: timings[1][0], 2: timings[2][2]}
+    kernels = []
+    for kk, name, line, launches in ((1, "nn1", 59, org_k1),
+                                     (2, "knnk", 65, gen_k2)):
+        row = main_row[kk]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"tpu_joints_torch/neighbors/csrc/{name}.cu",
+            "replaces": f"tpu_joints/neighbors/pallas_knn.py:{line}",
+            "launches": launches, "max_abs_err": max_err[kk],
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": None, "cdist_topk_ms": row["cdist_topk_ms"],
+            "timings": timings[kk]})
+    print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -12,6 +12,7 @@ import torch
 
 from tpu_joints_torch.neighbors import pallas_knn as k1
 from tpu_joints_torch.neighbors.bruteforce import knn
+from tpu_joints_torch.neighbors.knn_cases import CASES, STRADDLE, straddle
 from tpu_joints_torch.segment.region_growing import region_growing
 
 
@@ -95,6 +96,73 @@ def test_knnk_breaks_exact_ties_to_the_lowest_index_on_card():
     assert torch.equal(i, ir) and torch.equal(d, dr)
     assert torch.equal(i[:, 0].long(), torch.arange(256, device="cuda"))
     assert torch.equal(i[:, 1].long(), torch.arange(256, device="cuda") + 512)
+
+
+def _equal_to_plain_on_card(q, s, m, k):
+    """K1 (k = 1) or K2 through ``knn`` equals its plain version bit for
+    bit: one launch, ``torch.equal`` on distances and indices."""
+    dev = torch.device("cuda")
+    q, s, m = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+               for a in (q, s, m))
+    wrapper = k1.nn1 if k == 1 else k1.knnk
+    before = wrapper.launches
+    d, i = knn(q, s, k, source_mask=m)
+    assert wrapper.launches == before + 1
+    dr, ir = (k1.nn1_reference(q, s, m) if k == 1
+              else k1.knnk_reference(q, s, k, m))
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir)
+    assert torch.equal(d, dr)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 16, 32])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_knn_kernels_on_split_stressing_orders_on_card(case, k):
+    """Both kernels on the orders and ties that stress the split sweep and
+    the lane merge (sources approaching every query in scan order, all
+    distances tied, a masked twin before its valid copy, N = 1, N < k,
+    N = 33)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    _equal_to_plain_on_card(*CASES[case](k), k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["nn1", "knnk"])
+@pytest.mark.parametrize("shape", STRADDLE)
+def test_knn_kernels_straddling_the_split_on_card(shape, kernel):
+    """Row counts around a warp, source counts below, at and one above a
+    32-lane split, k = 32 with 32 lanes, and the clustered OBB's 16384²
+    with 90% of the sources masked."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    k = shape[2]
+    _equal_to_plain_on_card(*straddle(*shape), 1 if kernel == "nn1" else k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16])
+def test_knn_kernels_take_strided_views_on_card(k):
+    """Strided source and mask views, as the scene coverage hands K1 (the
+    model stride-sampled, ``detect.py::_model_at_capacity``): the wrapper
+    launches on contiguous copies, so the kernel equals its plain version
+    bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(k)
+    dev = torch.device("cuda")
+    q = torch.from_numpy(rng.normal(size=(300, 3)).astype(np.float32)).to(dev)
+    s = torch.from_numpy(rng.normal(size=(4096, 3)).astype(np.float32)).to(dev)
+    m = torch.from_numpy(rng.uniform(size=4096) >= 0.25).to(dev)
+    s, m = s[::16][:200], m[::16][:200]
+    assert not s.is_contiguous()
+    d, i = knn(q, s, k, source_mask=m)
+    dr, ir = (k1.nn1_reference(q, s.contiguous(), m.contiguous()) if k == 1
+              else k1.knnk_reference(q, s.contiguous(), k, m.contiguous()))
+    torch.cuda.synchronize()
+    assert torch.equal(i, ir)
+    assert torch.equal(d, dr)
 
 
 @pytest.mark.cuda

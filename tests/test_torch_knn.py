@@ -12,6 +12,7 @@ from tpu_joints.neighbors import radius_neighbors as jradius
 from tpu_joints.neighbors.pallas_knn import knn_pallas
 from tpu_joints_torch.neighbors import pallas_knn as k1
 from tpu_joints_torch.neighbors.bruteforce import knn, radius_neighbors
+from tpu_joints_torch.neighbors.knn_cases import CASES
 
 SHAPES = [(100, 300), (256, 2048), (70, 100)]
 
@@ -61,6 +62,32 @@ def test_nn1_plain_matches_pallas_interpret(shape):
                                atol=0)
     if not m.any():
         assert (d.numpy() >= 1e30).all() and (i.numpy() == 0).all()
+
+
+@pytest.mark.parametrize("case", sorted(set(CASES) - {"fewer_than_k"}))
+def test_nn1_plain_on_split_stressing_orders(case):
+    """K1's plain version on the orders, ties and sizes that stress a
+    source sweep split over lanes and merged (sources approaching every
+    query in scan order, all distances tied, a masked twin before its valid
+    copy, N = 1, N = 33; N < k cannot happen at k = 1): equal to the kernel
+    contract exactly, and to the Pallas kernel (interpret mode) in indices
+    and within 2 ulp in distances, as in
+    ``test_nn1_plain_matches_pallas_interpret``."""
+    q, s, m = CASES[case](1)
+    d, i = k1.nn1_reference(torch.from_numpy(q), torch.from_numpy(s),
+                            torch.from_numpy(m))
+    dc, ic = _kernel_contract(q, s, m)
+    np.testing.assert_array_equal(d.numpy(), dc)
+    np.testing.assert_array_equal(i.numpy(), ic)
+    dp, ip = knn_pallas(jnp.asarray(q), jnp.asarray(s), 1,
+                        source_mask=jnp.asarray(m), tm=64, tn=256,
+                        interpret=True)
+    np.testing.assert_array_equal(ic, np.asarray(ip))
+    np.testing.assert_allclose(dc, np.asarray(dp), rtol=2.0 ** -22, atol=0)
+    expect = {"scan_approach": len(s) - 1, "all_identical": 0,
+              "masked_twin": 2 * np.arange(len(q)) + 1}
+    if case in expect:
+        np.testing.assert_array_equal(ic[:, 0], expect[case])
 
 
 def test_knn_k1_dispatches_to_nn1_by_device():

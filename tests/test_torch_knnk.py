@@ -3,6 +3,9 @@ its plain version against the Pallas kernel (interpret mode) and against a
 numpy statement of the contract, the device dispatch and ``knn``'s routing.
 K2 itself is checked against its plain version on the card by
 ``tests/test_torch_cuda.py``."""
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ from tpu_joints.neighbors.pallas_knn import knn_pallas
 from tpu_joints_torch.core.cloud import SENTINEL
 from tpu_joints_torch.neighbors import bruteforce
 from tpu_joints_torch.neighbors import pallas_knn as pk
+from tpu_joints_torch.neighbors.knn_cases import CASES
 
 # (M, N, masked share): masked sources, M and N off the Pallas tiles, all
 # sources masked, and N < k for the larger k
@@ -98,6 +102,92 @@ def test_knnk_plain_matches_contract(k, shape):
     np.testing.assert_array_equal(d.numpy(), dc)
     np.testing.assert_array_equal(i.numpy(), ic)
     assert (np.diff(d.numpy(), axis=1) >= 0).all()
+
+
+@pytest.mark.parametrize("k", [2, 16, 32])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_knnk_plain_on_split_stressing_orders(case, k):
+    """The orders, ties and sizes that stress a source sweep split over
+    lanes and merged (sources approaching every query in scan order, all
+    distances tied, a masked twin before its valid copy, N = 1, N < k,
+    N = 33): the plain version equals the numpy contract exactly, and its
+    index sets equal the Pallas kernel's (interpret mode) with distances
+    within 2 ulp, as in ``test_knnk_plain_matches_pallas_interpret``."""
+    q, s, m = CASES[case](k)
+    d, i = pk.knnk_reference(_t(q), _t(s), k, _t(m))
+    dc, ic = _contract(q, s, m, k)
+    np.testing.assert_array_equal(d.numpy(), dc)
+    np.testing.assert_array_equal(i.numpy(), ic)
+    dp, ip = knn_pallas(jnp.asarray(q), jnp.asarray(s), k,
+                        source_mask=jnp.asarray(m), tm=64, tn=256,
+                        interpret=True)
+    dp, ip = np.asarray(dp), np.asarray(ip)
+    order = np.argsort(dp, axis=1, kind="stable")
+    dp, ip = np.take_along_axis(dp, order, 1), np.take_along_axis(ip, order, 1)
+    valid = dp < 1e30
+    np.testing.assert_array_equal(dc < 1e30, valid)
+    for r in range(len(q)):
+        assert set(ic[r][valid[r]]) == set(ip[r][valid[r]]), r
+    np.testing.assert_allclose(dc, dp, rtol=2.0 ** -22, atol=0)
+    if case == "all_identical":
+        np.testing.assert_array_equal(ic, np.broadcast_to(np.arange(k), ic.shape))
+    if case == "scan_approach":                 # the last k sources, nearest first
+        np.testing.assert_array_equal(ic[:, 0], len(s) - 1)
+    if case == "masked_twin":
+        np.testing.assert_array_equal(ic[:, 0], 2 * np.arange(len(q)) + 1)
+        assert (dc[:, 0] == 0).all()
+
+
+def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
+    """Editing a header under csrc/ changes every kernel's build key, so a
+    stale library in _build/ is never loaded for a changed header."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    for f in pk._CSRC.iterdir():
+        if f.suffix in (".cu", ".cuh"):
+            (csrc / f.name).write_bytes(f.read_bytes())
+    headers = sorted(csrc.glob("*.cuh"))
+    assert headers
+    key = {n: pk._library_path(n) for n in pk._ENTRY}
+    monkeypatch.setattr(pk, "_CSRC", csrc)
+    assert key == {n: pk._library_path(n) for n in pk._ENTRY}
+    headers[0].write_text(headers[0].read_text() + "\n// edited\n")
+    after = {n: pk._library_path(n) for n in pk._ENTRY}
+    assert all(key[n] != after[n] for n in pk._ENTRY)
+    assert all(p.parent == pk._BUILD_DIR for p in after.values())
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parent.parent / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("argv", [[], ["--against", "somewhere"]])
+def test_chip_smoke_needs_a_card(monkeypatch, argv):
+    """The smoke and its comparison with another version's kernels run on
+    a CUDA card only: without one they raise before building anything."""
+    smoke = _chip_smoke()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("sys.argv", ["chip_smoke.py", *argv])
+    with pytest.raises(RuntimeError, match="CUDA device"):
+        smoke.main()
+
+
+def test_chip_smoke_bound_counts_valid_sources_only():
+    """The bound's operations are 9 flops per (query, valid source) pair:
+    masked sources cost the mask byte only, which a kernel that drops them
+    while staging also pays."""
+    bound = _chip_smoke()._bound
+    ms, by = bound(16384, 16384, 8073, 30)
+    assert by == "operations"
+    assert ms == pytest.approx(9 * 16384 * 8073 / 67e12 * 1e3)
+    assert bound(16384, 16384, 16384, 30)[0] > 2 * ms
+    ms0, by0 = bound(64, 256, 0, 8)
+    assert by0 == "bytes"
+    assert ms0 == pytest.approx((12 * 64 + 256 + 8 * 64 * 8) / 3.35e12 * 1e3)
 
 
 def test_knnk_keeps_valid_sentinel_sources_and_drops_masked_ones():

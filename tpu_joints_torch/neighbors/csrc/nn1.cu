@@ -1,81 +1,26 @@
-// Exact 3-D nearest valid source point for every query row (k = 1).
+// Kernel K1: exact 3-D nearest valid source point for every query row (k = 1).
 //
 // Replaces the TPU kernel tpu_joints/neighbors/pallas_knn.py::_knn_kernel in
-// its k=1 mode (entry point knn_pallas). Same contract:
-//   d(q, s) = ((dx*dx + dy*dy) + dz*dz) + pen,  pen = 0 on valid sources and
-//   3e38 on masked ones; the running best starts at (3e38, 0) and is replaced
-//   only on a strict '<' while sources are visited in ascending order, so ties
-//   go to the lowest source index and a row with no valid source keeps
-//   (3e38, 0) -- an index already inside [0, N-1].
-// Built with --fmad=false so the sum above is rounded term by term, exactly
-// as the plain PyTorch version (nn1_reference) computes it op by op.
+// its k=1 mode (entry point knn_pallas). Same contract (see knn_split.cuh):
+// the running best starts at (3e38, 0) and is replaced only on a strict '<'
+// while each lane visits its sources in ascending order, and the lanes'
+// bests are merged lexicographically on (distance, index), so ties go to the
+// lowest source index and a row with no valid source keeps (3e38, 0) -- an
+// index already inside [0, N-1]. Equal bit for bit to the plain PyTorch
+// version (nn1_reference).
 //
-// What bounds it on the card: each row does ~9 flops per source and the
-// main path's shapes are small (8192 x 2560 for ICP, 40960 x 2048 for scene
-// coverage: 21M-84M pairs), so the kernel is bound by the issue rate of the
-// inner loop, not by memory. Design: one thread per query row keeps its
-// best (d, i) in registers; the block stages source tiles through shared
-// memory as structure-of-arrays x/y/z plus the penalty, so each source is
-// read from device memory once per block and broadcast to all its threads.
-// Blocks are independent (no cross-block reduction), which replaces the
-// TPU's sequential source-axis grid dimension with a loop inside the block.
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-namespace {
-
-constexpr int kThreads = 128;
-constexpr int kTile = 1024;
-constexpr float kInf = 3.0e38f;
-
-__global__ void __launch_bounds__(kThreads)
-nn1_kernel(const float* __restrict__ query, const float* __restrict__ source,
-           const uint8_t* __restrict__ mask, float* __restrict__ out_d,
-           int* __restrict__ out_i, int M, int N) {
-  __shared__ float sx[kTile];
-  __shared__ float sy[kTile];
-  __shared__ float sz[kTile];
-  __shared__ float sp[kTile];
-
-  const int row = blockIdx.x * kThreads + threadIdx.x;
-  float qx = 0.0f, qy = 0.0f, qz = 0.0f;
-  if (row < M) {
-    qx = query[3 * row + 0];
-    qy = query[3 * row + 1];
-    qz = query[3 * row + 2];
-  }
-  float best_d = kInf;
-  int best_i = 0;
-
-  for (int base = 0; base < N; base += kTile) {
-    const int n = min(kTile, N - base);
-    __syncthreads();  // the previous tile is no longer read
-    for (int t = threadIdx.x; t < n; t += kThreads) {
-      const int j = base + t;
-      sx[t] = source[3 * j + 0];
-      sy[t] = source[3 * j + 1];
-      sz[t] = source[3 * j + 2];
-      sp[t] = mask[j] ? 0.0f : kInf;
-    }
-    __syncthreads();
-    for (int t = 0; t < n; ++t) {
-      const float dx = qx - sx[t];
-      const float dy = qy - sy[t];
-      const float dz = qz - sz[t];
-      const float d = ((dx * dx + dy * dy) + dz * dz) + sp[t];
-      if (d < best_d) {
-        best_d = d;
-        best_i = base + t;
-      }
-    }
-  }
-  if (row < M) {
-    out_d[row] = best_d;
-    out_i[row] = best_i;
-  }
-}
-
-}  // namespace
+// What bounds it on the card: ~9 flops and one compare per (query, source)
+// pair; the main path's shapes (8192 x 2560 for ICP, 40960 x 2048 and
+// 10240 x 4096 for scene coverage: 21M-84M pairs) move well under 1 MB, so
+// it is bound by the instruction rate of the inner loop, not by memory. It
+// is the K = 1 case of knn_split.cuh. One thread per row gave 64 blocks of 4
+// warps at 8192 rows, on 64 of 132 SMs; now each row is split over S lanes
+// of a warp, S as large as still fits the card in one wave (40 registers, 6
+// blocks of 256 threads or 48 warps per SM: S = 16 at 8192 and 10240 rows,
+// 4 at 40960), each lane keeps a running best over its share, and one
+// shuffle arg-min over the row's lanes gives the answer. Masked sources are
+// dropped when a tile is staged, and a tile is read as contiguous floats.
+#include "knn_split.cuh"
 
 // Launches on `stream` (a cudaStream_t passed as void*) and returns the
 // launch's cudaError_t: 0 when the kernel was accepted.
@@ -83,8 +28,6 @@ extern "C" int tj_nn1(const float* query, const float* source,
                       const uint8_t* mask, float* out_d, int* out_i, int M,
                       int N, void* stream) {
   if (M <= 0) return 0;
-  const int blocks = (M + kThreads - 1) / kThreads;
-  nn1_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      query, source, mask, out_d, out_i, M, N);
-  return static_cast<int>(cudaGetLastError());
+  return tj::launch_knn<1>(query, source, mask, out_d, out_i, M, N, 1,
+                           static_cast<cudaStream_t>(stream));
 }

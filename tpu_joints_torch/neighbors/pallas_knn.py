@@ -1,9 +1,11 @@
 """Kernels K1 and K2: exact 3-D nearest valid sources, hand-written in CUDA.
 
 Counterpart of ``tpu_joints/neighbors/pallas_knn.py::knn_pallas``: K1 is
-its k=1 mode (``csrc/nn1.cu``), K2 its 2 <= k <= 32 mode (``csrc/knnk.cu``).
-Each source is compiled with nvcc for ``sm_90a`` on first use into
-``tpu_joints_torch/_build/`` (keyed by a hash of the source and flags) and
+its k=1 mode (``csrc/nn1.cu``), K2 its 2 <= k <= 32 mode (``csrc/knnk.cu``);
+both instantiate the split-row kernel of ``csrc/knn_split.cuh``. Each
+source is compiled with nvcc for ``sm_90a`` on first use into
+``tpu_joints_torch/_build/`` (keyed by a hash of the source, the shared
+headers and the flags) and
 bound with ctypes -- no ninja, no PyTorch headers. :func:`build_all` starts
 one nvcc per source at once.
 
@@ -64,8 +66,12 @@ def _nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    """Where the shared library for kernel ``name``'s source and flags lives."""
+    """Where the shared library for kernel ``name``'s source, the shared
+    headers it may include (every ``csrc/*.cuh``) and the flags lives."""
     h = hashlib.sha256((_CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(_CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
     h.update(" ".join(_NVCC_FLAGS).encode())
     return _BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
