@@ -42,7 +42,23 @@ Phases (any failure raises and the exit code is non-zero):
                launch rechecked, K2 timed at the region-growing and
                clustered-OBB shapes against its plain version and
                cdist+topk, latency over 10 runs, the gate, and the same path
-               at small size against the CPU path.
+               at small size against the CPU path;
+  7. segmented organized path — detect_organized on the same pose's frame
+               with the workshop table behind the joint and bench.py's
+               scene_latency_segmented config (RANSAC plane removal, lattice
+               region growing and the curvature filter on the 120×160 tile
+               lattice): K1 and K2 launches and host syncs over one run
+               (syncs must equal the lattice region growing's reads),
+               latency over 10 runs, the gate, and the same chain at small
+               size against the CPU path;
+  8. two-part path — the {chord, stub} part banks of bench.py built on the
+               card (84 K2 launches, every launch's inputs rechecked), their
+               concatenation and shared-CAD check made once, then
+               detect_parts_organized on the table frame with bench.py's
+               scene_latency_two_part config: launches, host syncs (again
+               the lattice region growing's reads), latency over 10 runs,
+               the gate, the winning part, and the candidate field at small
+               size against the CPU path.
 Every timing gives the kernel, its plain version and cdist+topk (CUDA
 events and profiler device time) beside the bound and the shape's launches
 per bank build, organized frame and generic frame. The kernels JSON line
@@ -302,10 +318,13 @@ def _check_knn(pk, q, s, k, m, label, card):
     return err
 
 
-def _small_runs(dev, det_cfg, gen_cfg, T_gt, card):
-    """The organized and the generic path at small size (320×240 frame,
-    level-0 bank) on the card and on the CPU (plain versions): poses within
-    2e-3, both accepted, both within the gate."""
+def _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card):
+    """The organized, generic and segmented paths at small size (320×240
+    frame, level-0 bank) on the card and on the CPU (plain versions): poses
+    within 2e-3, both accepted, both within the gate. The two-part path at
+    that size finds no acceptable pose on either device (most Hough peaks
+    rest on 3-5 matches), so there the candidate field is held equal: the
+    views and their validity, each half its own part's."""
     import numpy as np
     import torch
 
@@ -314,6 +333,7 @@ def _small_runs(dev, det_cfg, gen_cfg, T_gt, card):
     from tpu_joints_torch.core.cloud import make_cloud
     from tpu_joints_torch.modelbank.bank import build_bank
     from tpu_joints_torch.pipelines.detect import detect, detect_organized
+    from tpu_joints_torch.pipelines.multi import detect_parts_organized
 
     def small(cfg, capacity):
         return DetectionConfig(**{**dataclasses.asdict(cfg), "scene_ss": 0.03,
@@ -322,22 +342,31 @@ def _small_runs(dev, det_cfg, gen_cfg, T_gt, card):
                                   "scene_key_capacity": 256})
 
     s_org, s_gen = small(det_cfg, 3072), small(gen_cfg, 3072)
+    s_seg, s_two = small(seg_cfg, 3072), small(two_cfg, 3072)
     model_s = syn.joint_model(3000, 1800)
     kw = dict(syn.bench_bank_kwargs(s_org), level=0, resolution=64,
               key_capacity=64, icp_capacity=1024)
     xs, vs = syn.frame(T_gt, 42, with_table=False, width=320, height=240)
+    xt, vt = syn.frame(T_gt, 42, with_table=True, width=320, height=240)
     pts = syn.scene_points(xs[vs], 3072)
-    out = {"organized": {}, "generic": {}}
+    out = {"organized": {}, "generic": {}, "segmented": {}}
+    two = {}
     for d in (dev, torch.device("cpu")):
         b = build_bank(model_s, **kw, device=d)
-        r, _ = detect_organized(
-            torch.as_tensor(xs, device=d), torch.as_tensor(vs, device=d), b,
-            s_org, block=2, half_window=3,
-            crop_lo=torch.as_tensor(syn.CROP_LO, device=d),
-            crop_hi=torch.as_tensor(syn.CROP_HI, device=d))
+        geo = dict(block=2, half_window=3,
+                   crop_lo=torch.as_tensor(syn.CROP_LO, device=d),
+                   crop_hi=torch.as_tensor(syn.CROP_HI, device=d))
+        r, _ = detect_organized(torch.as_tensor(xs, device=d),
+                                torch.as_tensor(vs, device=d), b, s_org, **geo)
         out["organized"][d.type] = r
         r = detect(make_cloud(pts, capacity=3072, device=d), b, s_gen)
         out["generic"][d.type] = r
+        table = (torch.as_tensor(xt, device=d), torch.as_tensor(vt, device=d))
+        r, _ = detect_organized(*table, b, s_seg, **geo)
+        out["segmented"][d.type] = r
+        parts = syn.build_part_banks(s_two, device=d, level=0, resolution=64,
+                                     key_capacity=64, icp_capacity=1024)
+        _, two[d.type], _ = detect_parts_organized(*table, parts, s_two, **geo)
     for path, res in out.items():
         poses = {k: r.full_pose.cpu().numpy() for k, r in res.items()}
         diff = float(np.abs(poses["cuda"] - poses["cpu"]).max())
@@ -355,6 +384,21 @@ def _small_runs(dev, det_cfg, gen_cfg, T_gt, card):
         if diff > 2e-3 or not all(acc.values()) or any(
                 r >= 1.0 or t >= 0.005 for r, t in errs.values()):
             raise RuntimeError(f"card and CPU disagree on the small {path} path")
+    views = {k: r.cand_views.cpu() for k, r in two.items()}
+    ok = {k: r.cand_valid.cpu() for k, r in two.items()}
+    half = views["cuda"].shape[0] // 2
+    print(f"# two-part path small 320x240, card vs CPU (plain versions): "
+          f"candidate views {views['cuda'].tolist()} vs "
+          f"{views['cpu'].tolist()}, {int(ok['cuda'].sum())} vs "
+          f"{int(ok['cpu'].sum())} valid, accepted "
+          f"{bool(two['cuda'].accepted)} vs {bool(two['cpu'].accepted)} {card}",
+          flush=True)
+    if not (torch.equal(views["cuda"], views["cpu"])
+            and torch.equal(ok["cuda"], ok["cpu"])
+            and bool((views["cuda"][:half] < 12).all())
+            and bool((views["cuda"][half:] >= 12).all())):
+        raise RuntimeError("card and CPU disagree on the small two-part "
+                           "candidate field")
 
 
 def _timed_runs(run, n=10):
@@ -393,7 +437,8 @@ def _gate(label, res, T_gt, times, card, extra=""):
 
 def _count_syncs(fn):
     """Run ``fn`` once with synchronisation warnings on; return its result
-    and the flagged host synchronisations."""
+    and the flagged host synchronisations, each with the Python line that
+    made it."""
     import torch
 
     torch.cuda.synchronize()
@@ -405,8 +450,8 @@ def _count_syncs(fn):
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
-    return out, [str(w.message).splitlines()[0] for w in caught
-                 if "synchroniz" in str(w.message)]
+    return out, [f"{str(w.message).splitlines()[0]} [{w.filename}:{w.lineno}]"
+                 for w in caught if "synchroniz" in str(w.message)]
 
 
 def main() -> None:
@@ -426,7 +471,9 @@ def main() -> None:
     from tpu_joints_torch.neighbors import bruteforce
     from tpu_joints_torch.neighbors import knn_cases
     from tpu_joints_torch.neighbors import pallas_knn as pk
+    from tpu_joints_torch.pipelines import multi
     from tpu_joints_torch.pipelines.detect import detect, detect_organized
+    from tpu_joints_torch.segment import organized as lattice
     from tpu_joints_torch.segment import region_growing as rg
 
     dev = torch.device("cuda:0")
@@ -625,25 +672,126 @@ def main() -> None:
     _gate("phase 6 generic 640x480", res, T_gt, times, card,
           f"scene points after the crop {int(res.metrics['scene_points'])}, ")
 
-    # --- both paths at small size, card vs CPU ----------------------------
-    _small_runs(dev, det_cfg, gen_cfg, T_gt, card)
+    # --- phase 7: the segmented organized path ----------------------------
+    seg_cfg = syn.segmented_config()
+    tab_h, tab_valid_h = syn.frame(T_gt, 42, with_table=True)
+    tab_img = torch.as_tensor(tab_h, device=dev)
+    tab_valid = torch.as_tensor(tab_valid_h, device=dev)
+
+    def run_seg():
+        return detect_organized(tab_img, tab_valid, bank, seg_cfg, block=4,
+                                half_window=5, crop_lo=lo, crop_hi=hi)
+
+    def counted(label, run, want_k2):
+        """One run of a lattice-cropped path with launches, syncs and the
+        lattice region growing's reads counted and held to each other."""
+        pk.nn1.launches = pk.knnk.launches = 0
+        lattice.region_growing_lattice.host_checks = 0
+        with _Recorder(bruteforce) as rec:
+            out, syncs = _count_syncs(run)
+        k1, k2 = pk.nn1.launches, pk.knnk.launches
+        reads = lattice.region_growing_lattice.host_checks
+        print(f"# {label}: nn1 launched {k1} times, knnk {k2} times in one "
+              f"run; launches by shape (M, N, k): "
+              f"{dict(sorted(rec.shapes().items()))}; host synchronisations "
+              f"flagged: {len(syncs)}, lattice region-growing host reads (one "
+              f"per {lattice.SWEEPS_PER_CHECK} sweeps): {reads} {card}",
+              flush=True)
+        for msg in sorted(set(syncs))[:5]:
+            print(f"#   sync: {msg}", flush=True)
+        if k1 == 0 or k2 != want_k2:
+            raise RuntimeError(f"{label} launched K1 {k1} and K2 {k2} times; "
+                               f"expected K1 >= 1 and K2 = {want_k2}")
+        if len(syncs) != reads:
+            raise RuntimeError(f"{len(syncs)} host syncs flagged, but the "
+                               f"lattice region growing reads {reads} times")
+        return out, rec.shapes(), k1
+
+    _, launches["segmented"], seg_k1 = counted(
+        "phase 7 segmented organized path", run_seg, 0)
+    (res, n_sel), times = _timed_runs(run_seg)
+    _gate("phase 7 segmented 640x480 with table", res, T_gt, times, card,
+          f"n_selected {int(n_sel)} of "
+          f"{int(res.metrics['scene_points'])} scene points, ")
+
+    # --- phase 8: the two-part path ---------------------------------------
+    two_cfg = syn.two_part_config()
+    torch.cuda.synchronize()
+    pk.knnk.launches = 0
+    t0 = time.perf_counter()
+    with _Recorder(bruteforce) as rec:
+        part_banks = syn.build_part_banks(two_cfg, device=dev)
+    torch.cuda.synchronize()
+    parts_s = time.perf_counter() - t0
+    parts_k2 = pk.knnk.launches
+    launches["part banks"] = rec.shapes()
+    n_part_views = sum(b.n_views for b in part_banks.values())
+    print(f"# phase 8 part banks: {list(part_banks)}, {n_part_views} views, "
+          f"view capacity Nv {part_banks['chord'].view_xyz.shape[1]}, built in "
+          f"{parts_s:.2f} s; K2 launched {parts_k2} times; launches by shape "
+          f"(M, N, k): {dict(sorted(launches['part banks'].items()))} {card}",
+          flush=True)
+    part_calls = rec.k2_calls()
+    if parts_k2 != n_part_views or len(part_calls) != parts_k2:
+        raise RuntimeError(f"the part banks launched K2 {parts_k2} times, "
+                           f"expected one per view ({n_part_views})")
+    for n, (q, s, k, m) in enumerate(part_calls):
+        check(q, s, k, m, f"part-bank view {n} normals")
+    # the concatenation and the shared-CAD check (a host read) happen here,
+    # once per bank set; the frames below find them cached
+    t0 = time.perf_counter()
+    names, cat = multi._cat_for_parts(part_banks)
+    torch.cuda.synchronize()
+    print(f"# phase 8 concatenated bank: {cat.n_views} views, desc "
+          f"{tuple(cat.desc.shape)}, made and checked in "
+          f"{(time.perf_counter() - t0) * 1e3:.3f} ms {card}", flush=True)
+
+    def run_two():
+        _, r, n = multi.detect_parts_organized(
+            tab_img, tab_valid, part_banks, two_cfg, block=4, half_window=5,
+            crop_lo=lo, crop_hi=hi)
+        return r, n
+
+    _, launches["two-part"], two_k1 = counted("phase 8 two-part path",
+                                              run_two, 0)
+    (res, n_sel), times = _timed_runs(run_two)
+    Vp = cat.n_views // len(names)
+    cand_parts = (res.cand_views // Vp).tolist()
+    _gate("phase 8 two-part 640x480 with table", res, T_gt, times, card,
+          f"winning part {names[int(res.view_idx) // Vp]}, candidates' parts "
+          f"{cand_parts}, n_selected {int(n_sel)}, ")
+    if cand_parts != sorted(cand_parts) or len(set(cand_parts)) != len(names):
+        raise RuntimeError(f"the pooled field is not one slice per part: "
+                           f"{cand_parts}")
+
+    # --- the paths at small size, card vs CPU ------------------------------
+    _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card)
 
     # the top-level numbers of each kernel are those of its main shape
-    # (K1: ICP; K2: the region-growing graph); "timings" lists every shape
-    # with its launches per bank build, organized frame and generic frame
+    # (K1: ICP; K2: the region-growing graph) and its launches in phase 8
+    # (K1: one two-part frame; K2: the part banks' build);
+    # "launches_by_path" gives each path's own count, taken from 0 over one
+    # run of it, and "timings" lists every shape with its launches per bank
+    # build and per frame of each path
     for row in timings[1] + timings[2]:
         row["launches"] = {path: n[tuple(row["shape"])]
                            for path, n in launches.items()}
     main_row = {1: timings[1][0], 2: timings[2][2]}
     kernels = []
-    for kk, name, line, launches in ((1, "nn1", 59, org_k1),
-                                     (2, "knnk", 65, gen_k2)):
+    by_path = {
+        1: {"organized": org_k1, "generic": gen_k1, "segmented": seg_k1,
+            "two-part": two_k1},
+        2: {"bank": bank_k2, "organized": org_k2, "generic": gen_k2,
+            "segmented": 0, "part banks": parts_k2, "two-part": 0}}
+    for kk, name, line, n_launches in ((1, "nn1", 59, two_k1),
+                                       (2, "knnk", 65, parts_k2)):
         row = main_row[kk]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"tpu_joints_torch/neighbors/csrc/{name}.cu",
             "replaces": f"tpu_joints/neighbors/pallas_knn.py:{line}",
-            "launches": launches, "max_abs_err": max_err[kk],
+            "launches": n_launches, "launches_by_path": by_path[kk],
+            "max_abs_err": max_err[kk],
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "cdist_topk_ms": row["cdist_topk_ms"],

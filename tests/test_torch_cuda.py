@@ -1,4 +1,5 @@
-"""Card-only checks of the port's CUDA kernels (marker ``cuda``).
+"""Card-only checks of the port's CUDA kernels and of the paths that run
+them, card against CPU (marker ``cuda``).
 
 A CUDA kernel has no CPU mode, so these skip without a card. This file
 imports neither JAX nor the JAX package — the GPU host has no JAX — so it
@@ -194,3 +195,111 @@ def test_region_growing_reads_the_host_once_per_eight_sweeps_on_card():
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
     assert region_growing.host_checks - before >= 1
     assert len(syncs) == region_growing.host_checks - before
+
+
+def _small_table_problem(device):
+    """The 320×240 table frame, crop box and geometry arguments on
+    ``device``."""
+    from tpu_joints_torch import synthetic as syn
+
+    xt, vt = syn.frame(syn.bench_pose(), 42, with_table=True, width=320,
+                       height=240)
+    frame = (torch.as_tensor(xt, device=device),
+             torch.as_tensor(vt, device=device))
+    geo = dict(block=2, half_window=3,
+               crop_lo=torch.as_tensor(syn.CROP_LO, device=device),
+               crop_hi=torch.as_tensor(syn.CROP_HI, device=device))
+    return frame, geo
+
+
+def _small(cfg):
+    import dataclasses
+
+    return dataclasses.replace(cfg, scene_ss=0.03, final_icp_iterations=8,
+                               scene_capacity=3072, scene_key_capacity=256)
+
+
+@pytest.mark.cuda
+def test_segmented_path_small_card_vs_cpu():
+    """The segmented organized chain at small size (320×240 table frame,
+    level-0 bank) on the card and on the CPU: same n_selected, both
+    accepted, full poses within 2e-3; on the card the host syncs equal the
+    lattice region growing's reads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import warnings
+
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.modelbank.bank import build_bank
+    from tpu_joints_torch.pipelines.detect import detect_organized
+    from tpu_joints_torch.segment.organized import region_growing_lattice
+
+    cfg = _small(syn.segmented_config())
+    kw = dict(syn.bench_bank_kwargs(cfg), level=0, resolution=64,
+              key_capacity=64, icp_capacity=1024)
+    out = {}
+    for d in ("cuda", "cpu"):
+        bank = build_bank(syn.joint_model(3000, 1800), **kw, device=d)
+        frame, geo = _small_table_problem(d)
+        if d == "cuda":
+            detect_organized(*frame, bank, cfg, **geo)       # warm
+            torch.cuda.synchronize()
+            before = region_growing_lattice.host_checks
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    out[d] = detect_organized(*frame, bank, cfg, **geo)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            syncs = [w for w in caught if "synchroniz" in str(w.message)]
+            reads = region_growing_lattice.host_checks - before
+            assert reads >= 1 and len(syncs) == reads
+        else:
+            out[d] = detect_organized(*frame, bank, cfg, **geo)
+    (rc, nc), (rh, nh) = out["cuda"], out["cpu"]
+    assert int(nc) == int(nh)
+    assert bool(rc.accepted) and bool(rh.accepted)
+    assert float((rc.full_pose.cpu() - rh.full_pose).abs().max()) < 2e-3
+
+
+@pytest.mark.cuda
+def test_two_part_path_small_card_vs_cpu():
+    """The two-part chain at small size on the card and on the CPU: the
+    pooled candidate field is equal (views and validity, each half its own
+    part's); at this size neither finds an acceptable pose."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.pipelines.multi import detect_parts_organized
+
+    cfg = _small(syn.two_part_config())
+    out = {}
+    for d in ("cuda", "cpu"):
+        banks = syn.build_part_banks(cfg, device=d, level=0, resolution=64,
+                                     key_capacity=64, icp_capacity=1024)
+        frame, geo = _small_table_problem(d)
+        names, out[d], _ = detect_parts_organized(*frame, banks, cfg, **geo)
+        assert names == ["chord", "stub"]
+    views = out["cuda"].cand_views.cpu()
+    assert torch.equal(views, out["cpu"].cand_views)
+    assert torch.equal(out["cuda"].cand_valid.cpu(), out["cpu"].cand_valid)
+    assert bool((views[:8] < 12).all()) and bool((views[8:] >= 12).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 2560, 19200])
+def test_choice_on_card_equals_cpu(n):
+    """``xla_cumsum`` and the weighted draw add and search in the same
+    order on the card: sums and indices equal the CPU's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.core import prng
+    from tpu_joints_torch.core.ops import xla_cumsum
+
+    m = np.random.default_rng(n).uniform(size=n) < 0.4
+    p = torch.from_numpy(m.astype(np.float32) / np.float32(m.sum()))
+    assert torch.equal(xla_cumsum(p.cuda()).cpu(), xla_cumsum(p))
+    u = prng.uniform_on(0, (256, 3), torch.device("cpu"))
+    assert torch.equal(prng.choice(u.cuda(), p.cuda()).cpu(),
+                       prng.choice(u, p))

@@ -255,15 +255,18 @@ def test_detect_rejects_foreign_devices_and_unported_options(problem, scene):
     _, tb, _, _, _, tcfg, _, _ = problem
     with pytest.raises(ValueError, match="bank on cpu"):
         tdet.detect(scene, tb, tcfg, viewpoint=torch.zeros(3, device="meta"))
-    for kw, item in (({"remove_plane": True}, "item 9"),
+    for kw, item in (({"keypoints": "lattice"}, "item 15"),
                      ({"rg_backend": "voxel"}, "item 14"),
                      ({"keypoints": "iss"}, "item 14"),
                      ({"normal_radius": 0.1}, "item 12")):
         with pytest.raises(NotImplementedError, match=item):
             tdet.prepare_scene(scene, dataclasses.replace(tcfg, **kw))
-    xyz = torch.zeros(8, 8, 3)
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tdet.detect_organized(xyz, torch.ones(8, 8, dtype=torch.bool), tb, tcfg)
+    # the plane removal is ported: the option runs and only ever drops points
+    feats = tdet.prepare_scene(scene, dataclasses.replace(
+        tcfg, remove_plane=True, segment_scene=False))
+    assert bool((feats.cloud.mask <= scene.mask).all())
+    assert tdet._strip_crop(tcfg) == dataclasses.replace(
+        tcfg, segment_scene=False, remove_plane=False)
     assert tconfig.from_dict(dataclasses.asdict(tcfg)) == tcfg
 
 

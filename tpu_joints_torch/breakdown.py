@@ -1,12 +1,18 @@
-"""Per-stage time of the port's two detection paths on one CUDA card.
+"""Per-stage time of the port's detection paths on one CUDA card.
 
-    python -m tpu_joints_torch.breakdown [--runs 10]
+    python -m tpu_joints_torch.breakdown [--runs 10] [--paths organized,generic,segmented,two-part]
 
-Builds the 42-view bench bank on the card, then for each path — the
-organized ``detect_organized`` chain on a 640×480 frame with the bench
-config, and the generic ``detect`` chain on the same frame's points as a
-2560-point cloud with ``synthetic.generic_config`` — runs its stages one
-after another, synchronising after each:
+Builds the 42-view bench bank on the card (and, for the two-part path, the
+two 42-view part banks), then for each path — the organized
+``detect_organized`` chain on a 640×480 frame with the bench config, the
+generic ``detect`` chain on the same frame's points as a 2560-point cloud
+with ``synthetic.generic_config``, the segmented ``detect_organized`` chain
+on the frame with the table (``synthetic.segmented_config``: its crop chain
+split into tile select + node normals, plane removal, lattice region
+growing, curvature filter + compaction) and the two-part
+``detect_parts_organized`` chain on that frame
+(``synthetic.two_part_config``, the 84-view concatenated bank) — runs its
+stages one after another, synchronising after each:
 
 * wall ms: median over ``--runs`` warm runs of the host clock around the
   stage (launch overhead included);
@@ -14,12 +20,16 @@ after another, synchronising after each:
   time and count of the stage in one more run;
 
 then the whole chain unsynchronised: median, quartiles, min and max wall
-ms, device busy ms per frame and peak device memory. Every line names the
-card and its power limit. Needs a CUDA device; raises without one.
+ms, device busy ms per frame and peak device memory. The segmented path is
+also run end to end with the lattice region growing never reading the host
+(all 64 sweeps, ``segment.organized.SWEEPS_PER_CHECK = 0``) beside its
+default of one read per 8 sweeps. Every line names the card and its power
+limit. Needs a CUDA device; raises without one.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import statistics
 import subprocess
@@ -76,20 +86,37 @@ def _end_to_end(run, runs):
             busy, n, torch.cuda.max_memory_allocated() / 2**20)
 
 
+@contextlib.contextmanager
+def _sweeps_per_check(lattice, per_check):
+    """Run the lattice region growing with another sweep schedule."""
+    default = lattice.SWEEPS_PER_CHECK
+    lattice.SWEEPS_PER_CHECK = per_check
+    try:
+        yield
+    finally:
+        lattice.SWEEPS_PER_CHECK = default
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--runs", type=int, default=10)
+    ap.add_argument("--paths", default="organized,generic,segmented,two-part")
     args = ap.parse_args()
+    want = args.paths.split(",")
     if not torch.cuda.is_available():
         raise RuntimeError("the breakdown needs a CUDA device")
     from tpu_joints_torch import synthetic as syn
-    from tpu_joints_torch.core.cloud import make_cloud
+    from tpu_joints_torch.core.cloud import SENTINEL, Cloud, make_cloud
     from tpu_joints_torch.features.normals import estimate_normals
     from tpu_joints_torch.modelbank.bank import build_bank
     from tpu_joints_torch.pipelines import detect as D
+    from tpu_joints_torch.pipelines import ingest as I
+    from tpu_joints_torch.pipelines import multi
     from tpu_joints_torch.pipelines.ingest import ingest_organized_blocks
+    from tpu_joints_torch.segment import organized as lattice
     from tpu_joints_torch.segment.region_growing import (
         cluster_curvature_filter, region_growing)
+    from tpu_joints_torch.segment.sac import dominant_plane
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -135,35 +162,110 @@ def main() -> None:
         ("features", lambda: put(feats=D.prepare_scene(
             s["crop"], bare, None, *s["nc"]))),
     ]
-    for label, c, head in (("organized", org_cfg, organized),
-                           ("generic", gen_cfg, generic)):
+    seg_cfg, two_cfg = syn.segmented_config(), syn.two_part_config()
+    tab_h, tab_valid_h = syn.frame(T_gt, 42, with_table=True)
+    tab = torch.as_tensor(tab_h, device=dev)
+    tab_valid = torch.as_tensor(tab_valid_h, device=dev)
+    vp0 = torch.zeros(3, device=dev)
+
+    def nodes():
+        x, y, z, mask, pix, got, _ = s["tiles"]
+        txyz, tnorm, tcurv, got = I._moment_normals(x, y, z, mask, pix, got,
+                                                    5, vp0)
+        put(txyz=txyz, tnorm=tnorm, tcurv=tcurv, got=got)
+
+    def plane(c):
+        got = s["got"]
+        cloud = Cloud(xyz=torch.where(got[:, None], s["txyz"], SENTINEL),
+                      mask=got, rgb=torch.zeros_like(s["txyz"]))
+        put(got2=got & ~dominant_plane(cloud, s["tnorm"], c.plane_dist,
+                                       c.plane_min_fraction))
+
+    def grow(c):
+        put(clusters=I._grow_lattice(s["txyz"], s["tnorm"], s["tcurv"],
+                                     s["got2"], 120, 160, c))
+
+    def compact(c):
+        keep = cluster_curvature_filter(s["clusters"], s["tcurv"], s["got2"],
+                                        c.cluster_max_curvature)
+        put(ing=I._compact_nodes(s["txyz"], s["tnorm"], s["tcurv"], keep,
+                                 c.scene_capacity))
+
+    def segmented_head(c):
+        return [
+            ("tile select", lambda: put(tiles=I._tile_select(
+                tab, tab_valid, 4, lo, hi))),
+            ("node normals", nodes),
+            ("plane removal", lambda: plane(c)),
+            ("lattice region growing", lambda: grow(c)),
+            ("curvature filter + compaction", lambda: compact(c)),
+            ("prepare", lambda: put(feats=D.prepare_scene(
+                s["ing"][0], D._strip_crop(c), None, s["ing"][1],
+                s["ing"][2]))),
+        ]
+
+    paths = [("organized", org_cfg, organized, bank, 1),
+             ("generic", gen_cfg, generic, bank, 1),
+             ("segmented", seg_cfg, segmented_head(seg_cfg), bank, 1)]
+    if "two-part" in want:
+        part_banks = syn.build_part_banks(two_cfg, device=dev)
+        _, cat = multi._cat_for_parts(part_banks)
+        paths.append(("two-part", two_cfg, segmented_head(two_cfg), cat, 2))
+    for label, c, head, b, n_parts in paths:
+        if label not in want:
+            continue
+        c = D._strip_crop(c) if label in ("segmented", "two-part") else c
         tail = [
-            ("match", lambda c=c: put(corrs=D.match_bank(
-                s["feats"].desc, s["feats"].desc_valid, bank.desc,
-                bank.key_valid, c))),
-            ("group", lambda c=c: put(inst=D._group_all_views(
-                s["feats"], bank, s["corrs"], c))),
+            ("match", lambda c=c, b=b: put(corrs=D.match_bank(
+                s["feats"].desc, s["feats"].desc_valid, b.desc,
+                b.key_valid, c))),
+            ("group", lambda c=c, b=b: put(inst=D._group_all_views(
+                s["feats"], b, s["corrs"], c))),
             ("refine" + (" + clustered OBB (K2)" if c.obb_largest_cluster
-                         else ""), lambda c=c: put(res=D.refine_instances(
-                s["feats"], bank, s["inst"], s["corrs"].count(), c))),
+                         else ""), lambda c=c, b=b, n=n_parts: put(
+                res=D.refine_instances(s["feats"], b, s["inst"],
+                                       s["corrs"].count(), c, n_parts=n))),
         ]
         for name, wall, dev_ms, n in _stage_table(head + tail, args.runs):
             print(f"# breakdown {label} {name}: wall {wall:.3f} ms (median of "
                   f"{args.runs}, synced per stage), device {dev_ms:.3f} ms, "
                   f"{n} device operations [{smi}]", flush=True)
-        if label == "organized":
-            def run():
-                return D.detect_organized(xyz, valid, bank, org_cfg, block=4,
-                                          half_window=5, crop_lo=lo, crop_hi=hi)
-        else:
-            def run():
-                return D.detect(scene, bank, gen_cfg)
-        med, q1, q3, mn, mx, busy, n, mem = _end_to_end(run, 2 * args.runs)
-        print(f"# breakdown {label} end to end: median {med:.3f} ms (quartiles "
-              f"{q1:.3f} / {q3:.3f}, min {mn:.3f}, max {mx:.3f}, n = "
-              f"{2 * args.runs}); device busy {busy:.3f} ms per frame, {n} "
-              f"device operations; peak device memory {mem:.1f} MiB [{smi}]",
-              flush=True)
+        geo = dict(block=4, half_window=5, crop_lo=lo, crop_hi=hi)
+        run = {
+            "organized": lambda: D.detect_organized(xyz, valid, bank, org_cfg,
+                                                    **geo),
+            "generic": lambda: D.detect(scene, bank, gen_cfg),
+            "segmented": lambda: D.detect_organized(tab, tab_valid, bank,
+                                                    seg_cfg, **geo),
+            "two-part": lambda: multi.detect_parts_organized(
+                tab, tab_valid, part_banks, two_cfg, **geo),
+        }[label]
+        default = lattice.SWEEPS_PER_CHECK
+        # the segmented chain also with the lattice region growing never
+        # reading the host (64 sweeps), before and after the default, in turns
+        schedules = (0, default, default, 0) if label == "segmented" \
+            else (default,)
+        for per_check in schedules:
+            note = "" if per_check else " (no host read, 64 sweeps)"
+            with _sweeps_per_check(lattice, per_check):
+                med, q1, q3, mn, mx, busy, n, mem = _end_to_end(
+                    run, 2 * args.runs)
+            print(f"# breakdown {label} end to end{note}: median {med:.3f} ms "
+                  f"(quartiles {q1:.3f} / {q3:.3f}, min {mn:.3f}, max "
+                  f"{mx:.3f}, n = {2 * args.runs}); device busy {busy:.3f} ms "
+                  f"per frame, {n} device operations; peak device memory "
+                  f"{mem:.1f} MiB [{smi}]", flush=True)
+        if label == "segmented":
+            for per_check in schedules:
+                with _sweeps_per_check(lattice, per_check):
+                    (_, wall, dev_ms, n), = _stage_table(
+                        [("grow", lambda: grow(c))], args.runs)
+                how = (f"{per_check} sweeps per host read" if per_check
+                       else "no host read, 64 sweeps")
+                print(f"# breakdown lattice region growing alone, {how}: wall "
+                      f"{wall:.3f} ms (median of {args.runs}), device "
+                      f"{dev_ms:.3f} ms, {n} device operations [{smi}]",
+                      flush=True)
 
 
 if __name__ == "__main__":

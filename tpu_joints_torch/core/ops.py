@@ -38,6 +38,26 @@ def fused_sumsq(v: torch.Tensor) -> torch.Tensor:
     return (v64[..., 2] * v64[..., 2] + acc).to(torch.float32)
 
 
+def xla_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive cumulative sum of float32[N], added in the order XLA's CPU
+    backend adds ``jnp.cumsum``: the lanes padded to rows of 16, a
+    sequential sum inside each row, the same scan over the rows' totals,
+    and each row offset by the total of the rows before it. A sequential
+    float32 sum rounds differently, and an index drawn by ``searchsorted``
+    over the sum moves with it; the 16 steps are explicit elementwise adds,
+    so every device adds in this order."""
+    n = x.shape[0]
+    rows = torch.nn.functional.pad(x, (0, -n % 16)).reshape(-1, 16)
+    cols = [rows[:, 0]]
+    for j in range(1, 16):
+        cols.append(cols[-1] + rows[:, j])
+    within = torch.stack(cols, dim=1)
+    if within.shape[0] > 1:
+        before = xla_cumsum(within[:, 15])[:-1]
+        within = torch.cat([within[:1], within[1:] + before[:, None]])
+    return within.reshape(-1)[:n]
+
+
 def take(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
     """``x[i]`` along axis 0 for a 0-dim integer tensor ``i``."""
     return x.index_select(0, i.reshape(1).long())[0]

@@ -3,28 +3,33 @@
 Two entry points share everything after the scene features:
 
 * ``detect_organized`` — raw organized frame → ingest (tile select +
-  moment normals) → uniform keypoints → one shared k_max radius gather →
-  SHOT + BOARD frames;
+  moment normals [+ the crop chain on the tile lattice: RANSAC plane
+  removal, lattice region growing, per-cluster curvature filter]) →
+  uniform keypoints → one shared k_max radius gather → SHOT + BOARD frames;
 * ``detect`` — an unorganized cloud (the CLI's file-driven flow) → kNN
-  normals (kernel K2) → [region-growing crop over a K2 kNN graph +
-  per-cluster curvature filter] → the same keypoints and features;
+  normals (kernel K2) → [RANSAC plane removal] → [region-growing crop over
+  a K2 kNN graph + per-cluster curvature filter] → the same keypoints and
+  features;
 
 then match against every bank view in one product (1-NN gate or 2-NN
-ratio) → Hough per view → view-grouped candidate cut → two-tier ICP
+ratio) → Hough per view → view-grouped candidate cut (per part, when the
+bank's view axis concatenates several part banks) → two-tier ICP
 (kernel K1) → coverage-dominant ranking + coverage gate → composed pose +
 OBB (of the whole aligned view, or of its largest smooth cluster: K2 again).
 
-``detect_organized`` never synchronises with the host: shapes are fixed by
-the config, every branch is on configuration or on host facts about the
-bank (``ModelBank.has_model``), and indexing with a computed index goes
-through gathers. The region growing of ``detect``'s crop and of the
-clustered OBB reads its convergence flag on the host once every 8 sweeps
-(``segment/region_growing.py``); nothing else in ``detect`` does.
+Shapes are fixed by the config, every branch is on configuration or on
+host facts about the bank (``ModelBank.has_model``), and indexing with a
+computed index goes through gathers, so the only host synchronisations are
+those of the region growing, which reads its convergence flag once every 8
+sweeps: the lattice one (``segment/organized.py``) in ``detect_organized``
+with ``cfg.segment_scene``, the graph one (``segment/region_growing.py``)
+in ``detect``'s crop and in the clustered OBB. ``detect_organized`` without
+the crop chain never synchronises.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,7 +44,8 @@ from tpu_joints_torch.features.shot import compute_shot
 from tpu_joints_torch.filters.filters import compact_cloud, uniform_sample_mask
 from tpu_joints_torch.modelbank.bank import ModelBank
 from tpu_joints_torch.neighbors.bruteforce import radius_neighbors
-from tpu_joints_torch.pipelines.ingest import ingest_organized_blocks
+from tpu_joints_torch.pipelines.ingest import (ingest_organized_blocks,
+                                               ingest_organized_segmented)
 from tpu_joints_torch.recognize.hough import Instances, hough_group
 from tpu_joints_torch.recognize.icp import icp_multi, scene_coverage_multi
 from tpu_joints_torch.recognize.matching import Correspondences
@@ -47,6 +53,7 @@ from tpu_joints_torch.recognize.obb import (OBB, oriented_bounding_box,
                                             oriented_bounding_box_clustered)
 from tpu_joints_torch.segment.region_growing import (cluster_curvature_filter,
                                                      region_growing)
+from tpu_joints_torch.segment.sac import dominant_plane
 
 _BIG = 3.0e38
 
@@ -107,8 +114,8 @@ def prepare_scene(scene: Cloud, cfg: DetectionConfig,
         normals, curvature = estimate_normals(scene, k=cfg.normal_k,
                                               viewpoint=viewpoint)
     if cfg.remove_plane:
-        raise NotImplementedError("the RANSAC plane removal is not ported yet "
-                                  "(ROADMAP queue 1 item 9)")
+        scene = scene.with_mask(scene.mask & ~dominant_plane(
+            scene, normals, cfg.plane_dist, cfg.plane_min_fraction))
     if cfg.segment_scene:
         if cfg.rg_backend == "voxel":
             raise NotImplementedError("the voxel region growing is not ported "
@@ -217,39 +224,68 @@ def _group_all_views(feats: SceneFeatures, bank: ModelBank,
 
 
 def detect_with_features(feats: SceneFeatures, bank: ModelBank,
-                         cfg: DetectionConfig) -> DetectionResult:
-    """Match → group → refine against the bank."""
+                         cfg: DetectionConfig,
+                         n_parts: int = 1) -> DetectionResult:
+    """Match → group → refine against the bank. ``n_parts > 1``: the bank's
+    view axis concatenates that many part banks sharing one full CAD (see
+    ``refine_instances``)."""
     corrs = match_bank(feats.desc, feats.desc_valid, bank.desc,
                        bank.key_valid, cfg)
     inst = _group_all_views(feats, bank, corrs, cfg)
-    return refine_instances(feats, bank, inst, corrs.count(), cfg)
+    return refine_instances(feats, bank, inst, corrs.count(), cfg,
+                            n_parts=n_parts)
+
+
+def _candidate_cut(inst: Instances, cfg: DetectionConfig, n_parts: int):
+    """Top ``max_candidates`` (view, peak) slots per part: (top_flat
+    int64[C] into the flattened [V·P] instance table, top_votes [C]), part
+    p's candidates at [p·Cp, (p+1)·Cp). View-grouped
+    (``cfg.view_grouped_candidates``): the strongest bin picks the view and
+    all of that view's bins enter; else the plain top-k over the part's
+    slots."""
+    dev = inst.votes.device
+    V, P = inst.votes.shape
+    if V % n_parts:
+        raise ValueError(f"bank views ({V}) must split evenly into "
+                         f"{n_parts} parts")
+    Vp = V // n_parts
+    Cp = min(cfg.max_candidates, Vp * P)
+    votes = torch.where(inst.valid, inst.votes, -1.0).reshape(n_parts, Vp * P)
+    if cfg.view_grouped_candidates and P > 1 and Cp % P == 0:
+        strength = votes.reshape(n_parts, Vp, P).amax(2)
+        _, top_views = top_k(strength, Cp // P)             # [n_parts, Kv]
+        top_local = (top_views[:, :, None] * P
+                     + torch.arange(P, device=dev)).reshape(n_parts, Cp)
+        top_votes = votes.gather(1, top_local)
+    else:
+        top_votes, top_local = top_k(votes, Cp)             # [n_parts, Cp]
+    top_flat = top_local + (Vp * P) * torch.arange(n_parts, device=dev)[:, None]
+    return top_flat.reshape(-1), top_votes.reshape(-1)
 
 
 def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
-                     n_corr_total: torch.Tensor,
-                     cfg: DetectionConfig) -> DetectionResult:
+                     n_corr_total: torch.Tensor, cfg: DetectionConfig,
+                     n_parts: int = 1) -> DetectionResult:
     """Candidate cut → (two-tier) ICP → full-CAD ranking with scene
-    coverage → winner, acceptance gates, OBB."""
+    coverage → winner, acceptance gates, OBB.
+
+    ``n_parts > 1``: the bank's view axis is a concatenation of that many
+    part banks sharing one full CAD (``pipelines/multi.py``); the cut takes
+    ``max_candidates`` per part, so a vote-rich part cannot crowd the other
+    out, and every later stage runs on the pooled ``n_parts ·
+    max_candidates`` field unchanged. The winner's part is ``view_idx //
+    (V / n_parts)``."""
     if cfg.hv_enabled or cfg.peak_grouped_candidates:
         raise NotImplementedError("HV and the peak-grouped cut are not "
                                   "ported yet (ROADMAP queue 1 item 13)")
     dev = inst.votes.device
     V, P = inst.votes.shape
-    C = min(cfg.max_candidates, V * P)
-    votes = torch.where(inst.valid, inst.votes, -1.0).reshape(V * P)
-    if cfg.view_grouped_candidates and P > 1 and C % P == 0:
-        # strongest bin picks the view; ALL of that view's bins enter
-        strength = votes.reshape(V, P).amax(1)
-        _, top_views = top_k(strength, C // P)
-        top_local = (top_views[:, None] * P
-                     + torch.arange(P, device=dev)).reshape(C)
-        top_votes = votes[top_local]
-    else:
-        top_votes, top_local = top_k(votes, C)
-    cand_views = top_local // P
+    top_flat, top_votes = _candidate_cut(inst, cfg, n_parts)
+    C = top_flat.shape[0]
+    cand_views = top_flat // P
     cand_valid = top_votes > 0.0
-    cand_init = inst.poses.reshape(V * P, 4, 4)[top_local]
-    cand_ncorrs = inst.n_corrs.reshape(V * P)[top_local]
+    cand_init = inst.poses.reshape(V * P, 4, 4)[top_flat]
+    cand_ncorrs = inst.n_corrs.reshape(V * P)[top_flat]
 
     has_model = bank.has_model
     Ni = bank.icp_xyz.shape[1]
@@ -401,6 +437,34 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         metrics=metrics)
 
 
+def _strip_crop(cfg: DetectionConfig) -> DetectionConfig:
+    """The organized front end owns the crop chain; the detection must not
+    run it again on the cropped working set."""
+    if cfg.segment_scene or cfg.remove_plane:
+        return dataclasses.replace(cfg, segment_scene=False,
+                                   remove_plane=False)
+    return cfg
+
+
+def organized_features(xyz_img, valid, cfg: DetectionConfig, block: int,
+                       half_window: int, crop_lo, crop_hi,
+                       viewpoint) -> Tuple[SceneFeatures, torch.Tensor]:
+    """Raw organized frame → (SceneFeatures, n_selected): the ingest, with
+    the lattice crop chain when cfg asks for it, then ``prepare_scene``."""
+    if cfg.segment_scene or cfg.remove_plane:
+        scene, normals, curvature, n_sel = ingest_organized_segmented(
+            xyz_img, valid, cfg, block=block, half_window=half_window,
+            crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint)
+    else:
+        scene, normals, curvature, n_sel = ingest_organized_blocks(
+            xyz_img, valid, block=block, half_window=half_window,
+            capacity=cfg.scene_capacity, crop_lo=crop_lo, crop_hi=crop_hi,
+            viewpoint=viewpoint)
+    feats = prepare_scene(scene, _strip_crop(cfg), viewpoint, normals,
+                          curvature)
+    return feats, n_sel
+
+
 def _tier_cfg(bank: ModelBank, cfg: DetectionConfig) -> DetectionConfig:
     """Two-tier refinement off for banks without a full-CAD model."""
     if cfg.refine_top > 0 and not bank.has_model:
@@ -447,18 +511,13 @@ def detect_organized(
     """Raw organized frame float32[H, W, 3] + valid bool[H, W] → 6D pose.
 
     Every tensor argument must live on the bank's device; the chain runs
-    there. Returns ``(DetectionResult, n_selected)``. The segmented crop
-    chain (``cfg.segment_scene`` / ``cfg.remove_plane``, the organized
-    front end's own crop) is not ported yet.
+    there. With ``cfg.segment_scene`` / ``cfg.remove_plane`` the crop chain
+    runs on the sensor lattice inside the ingest
+    (``ingest_organized_segmented``). Returns ``(DetectionResult,
+    n_selected)``.
     """
     _check_devices(bank.device, xyz_img, valid, crop_lo, crop_hi, viewpoint)
-    if cfg.segment_scene or cfg.remove_plane:
-        raise NotImplementedError("the organized segmented chain is not "
-                                  "ported yet (ROADMAP queue 1 item 9)")
     cfg = _tier_cfg(bank, cfg)
-    scene, normals, curvature, n_sel = ingest_organized_blocks(
-        xyz_img, valid, block=block, half_window=half_window,
-        capacity=cfg.scene_capacity, crop_lo=crop_lo, crop_hi=crop_hi,
-        viewpoint=viewpoint)
-    feats = prepare_scene(scene, cfg, viewpoint, normals, curvature)
-    return detect_with_features(feats, bank, cfg), n_sel
+    feats, n_sel = organized_features(xyz_img, valid, cfg, block, half_window,
+                                      crop_lo, crop_hi, viewpoint)
+    return detect_with_features(feats, bank, _strip_crop(cfg)), n_sel

@@ -1,5 +1,6 @@
 """Raw organized-frame ingestion (counterpart of
-``tpu_joints/pipelines/ingest.py``, ``key_group=0`` route).
+``tpu_joints/pipelines/ingest.py``, ``key_group=0`` route), plain or with
+the scene-crop chain run on the tile lattice before compaction.
 
 One point per ``block``×``block`` pixel tile — the valid pixel nearest the
 tile mean, ties to the larger pixel index — with normals and curvature from
@@ -16,6 +17,9 @@ from tpu_joints_torch.core.cloud import SENTINEL, Cloud
 from tpu_joints_torch.features.eigen3 import eigh3x3
 from tpu_joints_torch.features.organized import _cov_from_moments, organized_moments
 from tpu_joints_torch.filters.filters import compact_indices
+from tpu_joints_torch.segment.organized import region_growing_lattice
+from tpu_joints_torch.segment.region_growing import cluster_curvature_filter
+from tpu_joints_torch.segment.sac import dominant_plane
 
 
 def _tiles(a: torch.Tensor, block: int) -> torch.Tensor:
@@ -134,3 +138,76 @@ def ingest_organized_blocks(
     scene = Cloud(xyz=torch.where(got[:, None], xyz, SENTINEL), mask=got,
                   rgb=torch.zeros_like(xyz))
     return scene, normals, curvature, n_selected
+
+
+def _grow_lattice(txyz, tnorm, tcurv, got, Hb: int, Wb: int, cfg):
+    """Smooth clusters of the [Hb·Wb] lattice nodes under cfg's gates."""
+    return region_growing_lattice(
+        txyz.reshape(Hb, Wb, 3), tnorm.reshape(Hb, Wb, 3),
+        tcurv.reshape(Hb, Wb), got.reshape(Hb, Wb),
+        smoothness_deg=cfg.rg_smoothness_deg,
+        curvature_threshold=cfg.rg_curvature,
+        min_cluster_size=cfg.rg_min_cluster, max_edge=cfg.rg_max_edge)
+
+
+def _compact_nodes(txyz, tnorm, tcurv, keep, capacity: int):
+    """The kept lattice nodes as (scene Cloud[capacity], normals,
+    curvature); an overflow is thinned uniformly along the raster order."""
+    idx, ok = compact_indices(keep, capacity)
+    xyz = torch.where(ok[:, None], txyz[idx], SENTINEL)
+    normals = torch.where(ok[:, None], tnorm[idx], 0.0)
+    curvature = torch.where(ok, tcurv[idx], 0.0)
+    return (Cloud(xyz=xyz, mask=ok, rgb=torch.zeros_like(xyz)), normals,
+            curvature)
+
+
+def ingest_organized_segmented(
+    xyz_img: torch.Tensor,
+    valid: torch.Tensor,
+    cfg,
+    block: int = 4,
+    half_window: int = 5,
+    crop_lo: Optional[torch.Tensor] = None,
+    crop_hi: Optional[torch.Tensor] = None,
+    viewpoint: Optional[torch.Tensor] = None,
+    key_group: int = 0,
+) -> Tuple[Cloud, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Organized ingestion with the reference's scene-crop chain run on the
+    sensor tile lattice before compaction: crop → dominant-plane removal
+    (``cfg.remove_plane``, 256 RANSAC hypotheses of key 0) → lattice region
+    growing + cluster curvature filter (``cfg.segment_scene``). Table and
+    clutter go before the working set is cut, so ``cfg.scene_capacity``
+    only has to hold the object. Pass the same cfg to the detection with
+    both flags off (``detect._strip_crop``).
+
+    Returns (scene Cloud[scene_capacity], normals, curvature, n_selected —
+    survivors of the segmentation, before the capacity cut)."""
+    if key_group > 0:
+        raise NotImplementedError("lattice keypoints are not ported yet "
+                                  "(ROADMAP queue 1 item 15)")
+    if viewpoint is None:
+        viewpoint = torch.zeros(3, dtype=torch.float32, device=xyz_img.device)
+    H, W, _ = xyz_img.shape
+    Hb, Wb = H // block, W // block
+    x, y, z, mask, pix, got, _ = _tile_select(xyz_img, valid, block,
+                                              crop_lo, crop_hi)
+    # normals at all tile winners: the lattice nodes
+    txyz, tnorm, tcurv, got = _moment_normals(
+        x, y, z, mask, pix, got, half_window, viewpoint)
+
+    if cfg.remove_plane:
+        nodes = Cloud(xyz=torch.where(got[:, None], txyz, SENTINEL), mask=got,
+                      rgb=torch.zeros_like(txyz))
+        got = got & ~dominant_plane(nodes, tnorm, cfg.plane_dist,
+                                    cfg.plane_min_fraction)
+
+    if cfg.segment_scene:
+        clusters = _grow_lattice(txyz, tnorm, tcurv, got, Hb, Wb, cfg)
+        keep = cluster_curvature_filter(clusters, tcurv, got,
+                                        cfg.cluster_max_curvature)
+    else:
+        keep = got
+
+    n_selected = keep.sum(dtype=torch.int32)
+    return (*_compact_nodes(txyz, tnorm, tcurv, keep, cfg.scene_capacity),
+            n_selected)

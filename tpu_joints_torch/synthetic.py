@@ -2,8 +2,9 @@
 
 Copies of ``tpu_joints/serve/depth.py::pixel_scales`` /
 ``raycast_cylinders``, of ``bench.py``'s ``_pose``, ``_bench_pose``,
-``_joint_parts``/``_joint_model``, ``_CYLINDERS``, ``_TABLE``, ``_frame``
-and ``_make_config`` recipe, and of the CLI's scene recipe
+``_joint_parts``/``_joint_model``, ``_CYLINDERS``, ``_TABLE``, ``_frame``,
+``build_part_banks`` and the ``_make_config`` recipe with the segmented
+and two-part chains' variants of it, and of the CLI's scene recipe
 (``tpu_joints/cli/main.py::_detect_one``), so a host without JAX can build
 the same scenes. The tests hold every function here equal to its original.
 """
@@ -196,6 +197,55 @@ def bench_bank_kwargs(cfg) -> dict:
                 normal_k=cfg.normal_k, k_max=cfg.k_max, level=1,
                 resolution=128, surface_leaf=0.01, key_capacity=256,
                 icp_capacity=2048)
+
+
+def segmented_config():
+    """``bench.py``'s ``scene_latency_segmented`` chain: ``bench_config()``
+    (crop flags on) with the full 4-iteration tier-1 view budget — the
+    cropped working set enters tier 1 from coarser Hough bins."""
+    import dataclasses
+
+    return dataclasses.replace(bench_config(), tier1_view_iterations=4)
+
+
+def two_part_config():
+    """``bench.py``'s ``scene_latency_two_part`` chain: ``bench_config()``
+    (crop flags on) with 8 candidates per part, so the pooled field keeps
+    the single-part row counts (tier 1 2·8·512 = polish 16·512 = tier 2
+    4·2048 = 8192 ICP query rows)."""
+    import dataclasses
+
+    return dataclasses.replace(bench_config(), max_candidates=8)
+
+
+def build_part_banks(cfg, device="cuda", level: int = 1,
+                     resolution: int = 128, key_capacity: int = 256,
+                     icp_capacity: int = 2048) -> dict:
+    """``bench.py::build_part_banks``: the {chord, stub} part banks on
+    ``device`` (the card unless asked otherwise), each from its own part's
+    rendered views at one common view capacity and all carrying the FULL
+    joint as ``model_xyz`` — the flagship search shape, whose winner is
+    composed and gated against the whole joint's CAD. The defaults are the
+    full size (42 views per part at 128 px)."""
+    from tpu_joints_torch.core.cloud import bucket_size
+    from tpu_joints_torch.modelbank.bank import build_bank
+    from tpu_joints_torch.modelbank.scanner import render_views
+
+    chord, stub = joint_parts()
+    full = np.concatenate([chord, stub])
+    part_views = {}
+    for name, part in (("chord", chord), ("stub", stub)):
+        views, poses, _ = render_views(part, level=level,
+                                       resolution=resolution)
+        part_views[name] = (views, poses)
+    vc = bucket_size(max(max(v.shape[0] for v in vs)
+                         for vs, _ in part_views.values()))
+    kw = dict(bench_bank_kwargs(cfg), key_capacity=key_capacity,
+              icp_capacity=icp_capacity)
+    del kw["level"], kw["resolution"]
+    return {name: build_bank(full, views=vs, poses=ps, view_capacity=vc,
+                             device=device, **kw)
+            for name, (vs, ps) in part_views.items()}
 
 
 # bench.py's crop box around the joint (the PassThrough work volume)
