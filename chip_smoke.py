@@ -17,10 +17,16 @@ with this tree's kernels (other, this, this, other).
 
 Phases (any failure raises and the exit code is non-zero):
   1. device  — card name and power limit (nvidia-smi);
-  2. build   — compiles kernels K1 (nn1.cu) and K2 (knnk.cu, both with
-               the shared knn_split.cuh) from the checkout, one nvcc each,
-               started together (with --against, the other version's too);
-  3. kernels — K1 and K2 against their plain PyTorch versions on the card,
+  2. build   — compiles kernels K1 (nn1.cu: tj_nn1 and its batch mode
+               tj_nn1_batched) and K2 (knnk.cu, both with the shared
+               knn_split.cuh) from the checkout, one nvcc each, started
+               together (with --against, the other version's too);
+  3. kernels — K1, K1's batch mode and K2 against their plain PyTorch
+               versions on the card (the batch mode also against B unbatched
+               K1 launches; fixed shapes, the stacked edge cases of
+               knn_cases.batches(); timed at the batch ICP's 8 x 8192 x 2560
+               beside 8 single launches, its plain version and batched
+               cdist+topk),
                bit for bit, at the paths' shapes, at edge cases, at the
                orders and ties that stress the split sweep and the lane merge
                and at shapes that straddle the split (the inputs of
@@ -33,7 +39,7 @@ Phases (any failure raises and the exit code is non-zero):
   5. organized path — detect_organized on a 640×480 frame of the bench
                joint with bench.py's scene_latency config: K1 launches (by
                shape) and host syncs over one run (none allowed), latency
-               over 10 runs, gate < 1° / < 5 mm, and the same chain at small
+               over 5 runs, gate < 1° / < 5 mm, and the same chain at small
                size against the CPU path;
   6. generic path — detect on the same frame's points as an unorganized
                2560-point cloud (the CLI's recipe) with the SHOT_demo-shaped
@@ -41,7 +47,7 @@ Phases (any failure raises and the exit code is non-zero):
                must equal the region-growing schedule's reads), every K2
                launch rechecked, K2 timed at the region-growing and
                clustered-OBB shapes against its plain version and
-               cdist+topk, latency over 10 runs, the gate, and the same path
+               cdist+topk, latency over 5 runs, the gate, and the same path
                at small size against the CPU path;
   7. segmented organized path — detect_organized on the same pose's frame
                with the workshop table behind the joint and bench.py's
@@ -49,17 +55,41 @@ Phases (any failure raises and the exit code is non-zero):
                region growing and the curvature filter on the 120×160 tile
                lattice): K1 and K2 launches and host syncs over one run
                (syncs must equal the lattice region growing's reads),
-               latency over 10 runs, the gate, and the same chain at small
+               latency over 5 runs, the gate, and the same chain at small
                size against the CPU path;
   8. two-part path — the {chord, stub} part banks of bench.py built on the
                card (84 K2 launches, every launch's inputs rechecked), their
                concatenation and shared-CAD check made once, then
                detect_parts_organized on the table frame with bench.py's
                scene_latency_two_part config: launches, host syncs (again
-               the lattice region growing's reads), latency over 10 runs,
+               the lattice region growing's reads), latency over 5 runs,
                the gate, the winning part, and the candidate field at small
-               size against the CPU path.
-Every timing gives the kernel, its plain version and cdist+topk (CUDA
+               size against the CPU path;
+  9. multi-instance — detect_organized on bench.py's two-instance frame
+               (two posed joints, seed 77, the wide crop box) with its
+               multi_instance config (local coverage gate, 4 instances per
+               view, the peak-grouped cut of 48 candidates, 12 tier-2
+               survivors, 8192 scene lanes, 1024 keys), then good_instances:
+               exactly two instances, joints a and b, each < 1 deg / < 5 mm;
+               0 host syncs; K1 launches by shape, each new shape rechecked
+               and timed, latency, device busy time and operations;
+ 10. GO-HV  — the same frame with hv_enabled (the global hypothesis
+               verification over the 48 registered candidates): the same
+               gate, the verified count, the launches HV adds (one of K1's
+               batch mode, one folded K1; both rechecked on their recorded
+               inputs and timed), HV on against HV off in turns, and
+               verify_hypotheses at small size on the card against the CPU;
+ 11. batch of 8 — detect_organized_batch on bench.py's 8 jittered frames
+               with the scene_latency config: 0 host syncs, launches by
+               shape (each ICP iteration one launch of K1's batch mode,
+               rechecked on a recorded input), every accepted frame < 5 deg /
+               < 20 mm and >= 70% accepted, each frame equal to its own
+               detect_organized run (accept flag, n_selected; accepted
+               poses within 1e-3), ms per frame amortised beside the
+               single-frame median of the same call (in turns), device
+               operations per batch beside 8 x the single frame's, device
+               busy time, peak memory.
+The paths' timed frames are 5 each. Every timing gives the kernel, its plain version and cdist+topk (CUDA
 events and profiler device time) beside the bound and the shape's launches
 per bank build, organized frame and generic frame. The kernels JSON line
 (per kernel: its main shape's numbers, and "timings" for every timed shape)
@@ -130,15 +160,18 @@ def _device_ms(fn, reps=20):
     raise RuntimeError("the profiler caught no device time in three tries")
 
 
-def _bound(M, N, n_valid, k):
+def _bound(M, N, n_valid, k, B=1):
     """(ms, what bounds it): the least time the card could take for an
-    exact kNN of M queries over N sources of which n_valid are valid — each
+    exact kNN of M queries over N sources of which n_valid are valid (with
+    B batch entries: M queries and N sources per entry, n_valid the valid
+    sources of all entries together, each searched by its entry's M
+    queries) — each
     input read once (query xyz, the N mask bytes and the valid sources'
     xyz, float32), each output written once (float32 + int32 per slot), 9
     fp32 flops per (query, valid source) pair for the difference-form
     distance (a masked source can never enter a list) — at the published
     peaks."""
-    t_bytes = (12 * M + N + 12 * n_valid + 8 * M * k) / HBM_BYTES_PER_S
+    t_bytes = (B * (12 * M + N + 8 * M * k) + 12 * n_valid) / HBM_BYTES_PER_S
     t_ops = 9 * M * n_valid / FP32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes > t_ops else "operations")
 
@@ -178,9 +211,9 @@ def _finish_other_build(jobs, card):
                 print(f"# ptxas {tag} {name}.cu: {line.strip()} {card}",
                       flush=True)
         if tag == "other":
-            entry, argtypes = pk._ENTRY[name]
+            entry = f"tj_{name}"      # the unbatched entry every version has
             fn = getattr(ctypes.CDLL(str(out)), entry)
-            fn.restype, fn.argtypes = ctypes.c_int, argtypes
+            fn.restype, fn.argtypes = ctypes.c_int, pk._ENTRY[name][entry]
             other[name] = fn
     return other
 
@@ -262,19 +295,23 @@ def _time_knn(pk, q, s, m, k, card, label, other=None):
 
 
 class _Recorder:
-    """Wraps ``bruteforce.nn1`` and ``bruteforce.knnk`` (K1's and K2's
-    entries from ``knn``) and keeps every call's inputs as (query, source,
-    k, mask), so each launch of a path can be rechecked and timed
-    afterwards. It launches nothing itself: the wrapped functions count the
-    launches."""
+    """Wraps ``bruteforce.nn1``, ``bruteforce.nn1_batched`` and
+    ``bruteforce.knnk`` (the kernels' entries from ``knn`` and
+    ``knn_batched``) and keeps every call's inputs as (query, source, k,
+    mask), so each launch of a path can be rechecked and timed afterwards.
+    It launches nothing itself: the wrapped functions count the launches."""
 
     def __init__(self, bruteforce):
         self.bf, self.calls = bruteforce, []
-        self.real = (bruteforce.nn1, bruteforce.knnk)
+        self.real = (bruteforce.nn1, bruteforce.knnk, bruteforce.nn1_batched)
 
     def nn1(self, query, source, source_mask=None):
         self.calls.append((query, source, 1, source_mask))
         return self.real[0](query, source, source_mask)
+
+    def nn1_batched(self, query, source, source_mask=None):
+        self.calls.append((query, source, 1, source_mask))
+        return self.real[2](query, source, source_mask)
 
     def knnk(self, query, source, k, source_mask=None):
         self.calls.append((query, source, k, source_mask))
@@ -284,16 +321,23 @@ class _Recorder:
         return [c for c in self.calls if c[2] > 1]
 
     def shapes(self):
-        """Launches by shape: {(M, N, k): count}."""
-        return collections.Counter((q.shape[0], s.shape[0], k)
+        """Launches by shape: {(M, N, k): count}, (B, M, N, 1) for K1's
+        batch mode."""
+        return collections.Counter((*q.shape[:-1], s.shape[-2], k)
                                    for q, s, k, _ in self.calls)
+
+    def first(self, shape):
+        """The inputs of the first recorded call of that shape."""
+        return next(c for c in self.calls
+                    if (*c[0].shape[:-1], c[1].shape[-2], c[2]) == tuple(shape))
 
     def __enter__(self):
         self.bf.nn1, self.bf.knnk = self.nn1, self.knnk
+        self.bf.nn1_batched = self.nn1_batched
         return self
 
     def __exit__(self, *exc):
-        self.bf.nn1, self.bf.knnk = self.real
+        self.bf.nn1, self.bf.knnk, self.bf.nn1_batched = self.real
 
 
 def _check_knn(pk, q, s, k, m, label, card):
@@ -316,6 +360,161 @@ def _check_knn(pk, q, s, k, m, label, card):
         raise RuntimeError(f"{'nn1' if k == 1 else 'knnk'} disagrees with its "
                            f"plain version ({label})")
     return err
+
+
+def _check_nn1_batched(pk, q, s, m, label, card):
+    """K1's batch mode against its plain version and against B unbatched K1
+    launches on the same card inputs: equal bit for bit, in one launch."""
+    import torch
+
+    before = pk.nn1_batched.launches
+    d, i = pk.nn1_batched(q, s, m)
+    if pk.nn1_batched.launches != before + 1:
+        raise RuntimeError(f"nn1_batched did not launch exactly once ({label})")
+    dr, ir = pk.nn1_batched_reference(q, s, m)
+    torch.cuda.synchronize()
+    singles = [pk.nn1(q[b], s[b], None if m is None else m[b])
+               for b in range(q.shape[0])]
+    same = all(torch.equal(d[b], db) and torch.equal(i[b], ib)
+               for b, (db, ib) in enumerate(singles))
+    mism = int((i != ir).sum())
+    err = float((d - dr).abs().max()) if d.numel() else 0.0
+    print(f"# K1 batched {tuple(q.shape[:2])}x{s.shape[1]} ({label}): index "
+          f"mismatches {mism}, max |dist diff| {err:.3e}, equal to "
+          f"{q.shape[0]} unbatched launches: {same} {card}", flush=True)
+    if not (torch.equal(d, dr) and torch.equal(i, ir) and same):
+        raise RuntimeError(f"nn1_batched disagrees with its plain version or "
+                           f"with unbatched launches ({label})")
+    return err
+
+
+def _time_nn1_batched(pk, q, s, m, card, label, reps=20):
+    """CUDA-event and profiler times of K1's batch mode, of B unbatched K1
+    launches, of its plain version and of batched cdist+topk (unmasked) on
+    the same inputs, in turns (singles, kernel, kernel, singles), as one row
+    of the kernels line."""
+    import torch
+
+    B, M, _ = q.shape
+    N = s.shape[1]
+    if m is None:
+        m = torch.ones((B, N), dtype=torch.bool, device=s.device)
+
+    def singles():
+        for b in range(B):
+            pk.nn1(q[b], s[b], m[b])
+
+    fns = {"kernel": lambda: pk.nn1_batched(q, s, m), "singles": singles,
+           "plain": lambda: pk.nn1_batched_reference(q, s, m),
+           "cdist+topk": lambda: torch.cdist(q, s).topk(1, largest=False)}
+    ev, dv = collections.defaultdict(list), collections.defaultdict(list)
+    for n in ("singles", "kernel", "kernel", "singles", "plain", "cdist+topk"):
+        ev[n].append(_event_ms(fns[n], reps))
+        dv[n].append(_device_ms(fns[n], reps))
+        torch.cuda.empty_cache()
+    n_valid = int(m.sum())
+    bound_ms, bound_by = _bound(M, N, n_valid, 1, B)
+    print(f"# timing {label} {B}x{M}x{N} k=1 ({n_valid} of {B * N} sources "
+          f"valid): median of {reps} CUDA-event runs, ms: "
+          + ", ".join(f"{n} " + " ".join(f"{v:.4f}" for v in vs)
+                      for n, vs in ev.items())
+          + f"; device time per call (profiler, {reps} calls), ms: "
+          + ", ".join(f"{n} " + " ".join(f"{v:.4f}" for v in vs)
+                      for n, vs in dv.items())
+          + f"; bound {bound_ms:.5f} ms ({bound_by}) {card}", flush=True)
+    return {"shape": [B, M, N, 1], "label": label, "n_valid": n_valid,
+            "ms": statistics.median(ev["kernel"]),
+            "dev_ms": statistics.median(dv["kernel"]),
+            "singles_ms": statistics.median(ev["singles"]),
+            "singles_dev_ms": statistics.median(dv["singles"]),
+            "plain_ms": ev["plain"][0], "plain_dev_ms": dv["plain"][0],
+            "cdist_topk_ms": ev["cdist+topk"][0],
+            "cdist_topk_dev_ms": dv["cdist+topk"][0], "bound_ms": bound_ms,
+            "bound_by": bound_by}
+
+
+def _device_busy(fn):
+    """(device ms, device operations, peak MiB) of one call of ``fn``: the
+    profiler's kernel, copy and fill time and count, and the allocator's
+    peak over the call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in ka) / 1e3,
+            sum(e.count for e in ka), torch.cuda.max_memory_allocated() / 2**20)
+
+
+def _instances_gate(label, res, cfg, T_a, T_b, card, good_instances):
+    """bench.py's multi-instance gate: exactly two GOOD instances, covering
+    joints a and b, each < 1 deg and < 5 mm."""
+    inst = good_instances(res, cfg, min_separation=0.2)
+    errs, covered = [], set()
+    for k in inst:
+        e = {n: _err(k["pose"], T) for n, T in (("a", T_a), ("b", T_b))}
+        name, (ang, dt) = min(e.items(), key=lambda kv: kv[1][1])
+        errs.append((name, ang, dt))
+        covered.add(name)
+    print(f"# {label}: {len(inst)} GOOD instances: "
+          + ", ".join(f"{n}: {a:.3f} deg {t * 1000:.3f} mm (candidate "
+                      f"{k['candidate']}, view {k['view_idx']})"
+                      for (n, a, t), k in zip(errs, inst))
+          + f"; valid {int(res.cand_valid.sum())}, verified "
+          f"{int(res.cand_verified.sum())} of {res.cand_valid.shape[0]} "
+          f"candidates, tier 2 {int(res.metrics['cand_tier2'].sum())}; winner "
+          f"accepted {bool(res.accepted)} {card}", flush=True)
+    if not (len(inst) == 2 and covered == {"a", "b"}
+            and all(a < 1.0 and t < 0.005 for _, a, t in errs)):
+        raise RuntimeError(f"{label} missed the gate: {errs}")
+
+
+def _small_hv(dev, card):
+    """verify_hypotheses at small size on the card against the CPU: the
+    exhaustive sweep (H = 9, two chunks, one invalid hypothesis) and the
+    greedy search (H = 24), with the occlusion exemption; masks equal."""
+    import numpy as np
+    import torch
+
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.core.cloud import make_cloud
+    from tpu_joints_torch.recognize.hv import verify_hypotheses
+
+    rng = np.random.default_rng(0)
+    model = syn.joint_model(500, 300)
+    n = len(model)
+    seen = (model @ syn.bench_pose()[:3, :3].T + syn.bench_pose()[:3, 3]
+            ).astype(np.float32)
+    pad = np.full((1024 - n, 3), 1e6, np.float32)
+    good = np.concatenate([seen, pad])
+    mask = np.zeros(1024, bool)
+    mask[:n] = True
+    for H in (9, 24):
+        insts = np.stack([good + np.float32(0.002 * h) for h in range(3)] + [
+            good + rng.normal(scale=0.3, size=3).astype(np.float32)
+            for _ in range(H - 3)])
+        valid = np.ones(H, bool)
+        valid[4] = False
+        out = {}
+        for d in (dev, torch.device("cpu")):
+            out[d.type] = verify_hypotheses(
+                torch.as_tensor(insts, device=d),
+                torch.as_tensor(np.tile(mask, (H, 1)), device=d),
+                torch.as_tensor(valid, device=d),
+                make_cloud(seen, capacity=1024, device=d),
+                inlier_threshold=0.005, occlusion_threshold=0.001).cpu()
+        print(f"# phase 10 verify_hypotheses small, H = {H} "
+              f"({'greedy' if H > 16 else 'exhaustive'}), card vs CPU: "
+              f"{out['cuda'].int().tolist()} vs {out['cpu'].int().tolist()} "
+              f"{card}", flush=True)
+        if not torch.equal(out["cuda"], out["cpu"]) or not out["cuda"].any() \
+                or bool(out["cuda"][4]):
+            raise RuntimeError(f"card and CPU disagree on verify_hypotheses "
+                               f"(H = {H})")
 
 
 def _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card):
@@ -401,7 +600,7 @@ def _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card):
                            "candidate field")
 
 
-def _timed_runs(run, n=10):
+def _timed_runs(run, n=5):
     import torch
 
     for _ in range(2):
@@ -472,7 +671,9 @@ def main() -> None:
     from tpu_joints_torch.neighbors import knn_cases
     from tpu_joints_torch.neighbors import pallas_knn as pk
     from tpu_joints_torch.pipelines import multi
-    from tpu_joints_torch.pipelines.detect import detect, detect_organized
+    from tpu_joints_torch.pipelines.detect import (detect, detect_organized,
+                                                   detect_organized_batch,
+                                                   good_instances)
     from tpu_joints_torch.segment import organized as lattice
     from tpu_joints_torch.segment import region_growing as rg
 
@@ -488,8 +689,9 @@ def main() -> None:
     t0 = time.perf_counter()
     jobs = _start_other_build(args.against) if args.against else None
     pk.build_all()
-    print(f"# phase 2 build: nn1.cu and knnk.cu compiled (in parallel) and "
-          f"bound in {time.perf_counter() - t0:.3f} s {card}", flush=True)
+    print(f"# phase 2 build: nn1.cu (tj_nn1, tj_nn1_batched) and knnk.cu "
+          f"(tj_knnk) compiled (in parallel) and bound in "
+          f"{time.perf_counter() - t0:.3f} s {card}", flush=True)
     other = _finish_other_build(jobs, card) if jobs else None
     if other:
         print(f"# phase 2 build: the other version ({args.against}) and "
@@ -558,11 +760,38 @@ def main() -> None:
         q, s, m = on_card(knn_cases.straddle(M, N, k, masked))
         for kk in (1, k):
             check(q, s, kk, m, f"straddling the split, {masked:.0%} masked")
-    timings = {1: [], 2: []}
+    # K1's batch mode: fixed shapes, then the stacked edge cases (an entry
+    # with no valid source, B = 1, masks that differ per entry, many
+    # entries, B * M around the row count that changes the lanes per row)
+    max_err["batched"] = 0.0
+
+    def check_batched(q, s, m, label):
+        max_err["batched"] = max(max_err["batched"], _check_nn1_batched(
+            pk, q, s, m, label, card))
+
+    def bpts(b, n):
+        return torch.randn(b, n, 3, generator=g).to(dev)
+
+    def bmsk(b, n, masked):
+        return (torch.rand(b, n, generator=g) >= masked).to(dev)
+
+    for B, M, N, masked, label in [
+            (8, 8192, 2560, 0.0, "batch ICP shape"),
+            (48, 8192, 16384, 0.5, "HV scene -> instance shape"),
+            (2, 70, 100, 0.25, "25% of sources masked"),
+            (3, 5000, 3333, 0.1, "N not a multiple of the tile"),
+            (5, 64, 256, 1.0, "all sources masked")]:
+        check_batched(bpts(B, M), bpts(B, N), bmsk(B, N, masked), label)
+    for name, arrays in sorted(knn_cases.batches().items()):
+        check_batched(*on_card(arrays), name)
+    timings = {1: [], 2: [], "batched": []}
     for M, N, label in [(8192, 2560, "ICP"), (40960, 2048, "tier-1 coverage"),
                         (10240, 4096, "tier-2 coverage")]:
         timings[1].append(_time_knn(pk, pts(M), pts(N), msk(N, 0.0), 1, card,
                                     f"phase 3 K1 ({label} shape)", other))
+    timings["batched"].append(_time_nn1_batched(
+        pk, bpts(8, 8192), bpts(8, 2560), bmsk(8, 2560, 0.0), card,
+        "phase 3 K1 batched (batch ICP shape)"))
 
     # --- phase 4: the 42-view bank on the card ----------------------------
     cfg = syn.bench_config()
@@ -764,6 +993,162 @@ def main() -> None:
         raise RuntimeError(f"the pooled field is not one slice per part: "
                            f"{cand_parts}")
 
+    # --- phase 9: multi-instance detection --------------------------------
+    two_h, two_valid_h, T_a, T_b = syn.two_instance_frame()
+    two_img = torch.as_tensor(two_h, device=dev)
+    two_valid = torch.as_tensor(two_valid_h, device=dev)
+    wlo = torch.as_tensor(syn.WIDE_LO, device=dev)
+    whi = torch.as_tensor(syn.WIDE_HI, device=dev)
+    multi_cfg, hv_cfg = syn.multi_instance_config(), syn.hv_config()
+
+    def run_multi(c=multi_cfg):
+        return detect_organized(two_img, two_valid, bank, c, block=4,
+                                half_window=5, crop_lo=wlo, crop_hi=whi)
+
+    def counted_frame(label, run):
+        """One run with all three launch counts and the syncs taken from 0;
+        no sync is allowed."""
+        pk.nn1.launches = pk.nn1_batched.launches = pk.knnk.launches = 0
+        with _Recorder(bruteforce) as rec:
+            out, syncs = _count_syncs(run)
+        n = (pk.nn1.launches, pk.nn1_batched.launches, pk.knnk.launches)
+        print(f"# {label}: nn1 launched {n[0]} times, nn1_batched {n[1]} "
+              f"times, knnk {n[2]} times in one run; launches by shape (M, N, "
+              f"k) or (B, M, N, k): {dict(sorted(rec.shapes().items()))}; host "
+              f"synchronisations flagged: {len(syncs)} {card}", flush=True)
+        for msg in sorted(set(syncs))[:5]:
+            print(f"#   sync: {msg}", flush=True)
+        if syncs:
+            raise RuntimeError(f"{label} synchronised with the host")
+        return out, rec, n
+
+    (res, n_sel), rec, (multi_k1, multi_kb, multi_k2) = counted_frame(
+        "phase 9 multi-instance path", run_multi)
+    launches["multi-instance"] = rec.shapes()
+    want = {(24576, 8192, 1): 17, (393216, 2048, 1): 1, (98304, 4096, 1): 1}
+    if dict(rec.shapes()) != want or (multi_kb, multi_k2) != (0, 0):
+        raise RuntimeError(f"the multi-instance frame launched "
+                           f"{dict(rec.shapes())}, expected {want}")
+    for shape, label in [((24576, 8192, 1), "multi-instance ICP"),
+                         ((393216, 2048, 1), "multi-instance tier-1 coverage"),
+                         ((98304, 4096, 1), "multi-instance tier-2 coverage")]:
+        q, s_, k, m = rec.first(shape)
+        check(q, s_, k, m, label + ", recorded inputs")
+        timings[1].append(_time_knn(pk, q, s_, m, k, card,
+                                    f"phase 9 K1 ({label})", other))
+    (res, n_sel), times = _timed_runs(run_multi)
+    busy, ops, peak = _device_busy(run_multi)
+    print(f"# phase 9 multi-instance 640x480: median "
+          f"{statistics.median(times):.3f} ms (min {min(times):.3f}, max "
+          f"{max(times):.3f}) over {len(times)} runs, n_selected {int(n_sel)}, "
+          f"device busy {busy:.3f} ms, {ops} device operations, peak "
+          f"{peak:.1f} MiB {card}", flush=True)
+    _instances_gate("phase 9 multi-instance", res, multi_cfg, T_a, T_b, card,
+                    good_instances)
+
+    # --- phase 10: global hypothesis verification --------------------------
+    (res_hv, _), rec, (hv_k1, hv_kb, hv_k2) = counted_frame(
+        "phase 10 GO-HV path", lambda: run_multi(hv_cfg))
+    launches["hv"] = rec.shapes()
+    Nv = bank.view_xyz.shape[1]
+    hv_shapes = {(48, 8192, Nv, 1): 1, (48 * Nv, 8192, 1): 1}
+    if (dict(rec.shapes()) != {**want, **hv_shapes}
+            or (hv_k1, hv_kb, hv_k2) != (multi_k1 + 1, 1, 0)):
+        raise RuntimeError(f"the HV frame launched {dict(rec.shapes())}, "
+                           f"expected {({**want, **hv_shapes})}")
+    print(f"# phase 10 GO-HV adds {hv_kb} nn1_batched launch and "
+          f"{hv_k1 - multi_k1} nn1 launch to the multi-instance frame {card}",
+          flush=True)
+    q, s_, _, m = rec.first((48, 8192, Nv, 1))
+    check_batched(q.contiguous(), s_, m, "HV scene -> instance, recorded inputs")
+    timings["batched"].append(_time_nn1_batched(
+        pk, q.contiguous(), s_, m, card,
+        "phase 10 K1 batched (HV scene -> instance)", reps=5))
+    q, s_, k, m = rec.first((48 * Nv, 8192, 1))
+    check(q, s_, k, m, "HV instance -> scene, recorded inputs")
+    timings[1].append(_time_knn(pk, q, s_, m, k, card,
+                                "phase 10 K1 (HV instance -> scene)", other))
+    del q, s_, m
+    torch.cuda.empty_cache()
+    turns = {"off": [], "on": []}
+    for which in ("off", "on", "on", "off"):
+        c = hv_cfg if which == "on" else multi_cfg
+        (r, _), t = _timed_runs(lambda: run_multi(c), n=3)
+        turns[which] += t
+    busy, ops, peak = _device_busy(lambda: run_multi(hv_cfg))
+    print(f"# phase 10 GO-HV 640x480: HV on median "
+          f"{statistics.median(turns['on']):.3f} ms, HV off "
+          f"{statistics.median(turns['off']):.3f} ms (in turns off, on, on, "
+          f"off; 3 runs each); HV on: device busy {busy:.3f} ms, {ops} device "
+          f"operations, peak {peak:.1f} MiB {card}", flush=True)
+    _instances_gate("phase 10 GO-HV", res_hv, hv_cfg, T_a, T_b, card,
+                    good_instances)
+    _small_hv(dev, card)
+
+    # --- phase 11: a batch of 8 frames --------------------------------------
+    n_batch = 8
+    imgs = torch.as_tensor(syn.batch_frames(xyz_h, n_batch), device=dev)
+    valids = valid[None].expand(n_batch, -1, -1).contiguous()
+
+    def run_batch():
+        return detect_organized_batch(imgs, valids, bank, det_cfg, block=4,
+                                      half_window=5, crop_lo=lo, crop_hi=hi)
+
+    (res_b, n_sel_b), rec, (bat_k1, bat_kb, bat_k2) = counted_frame(
+        "phase 11 batch of 8", run_batch)
+    launches["batch"] = rec.shapes()
+    want = {(8, 8192, 2560, 1): 16, (327680, 2048, 1): 1, (81920, 4096, 1): 1}
+    if dict(rec.shapes()) != want or bat_k2 != 0:
+        raise RuntimeError(f"the batch launched {dict(rec.shapes())}, "
+                           f"expected {want}")
+    q, s_, _, m = rec.first((8, 8192, 2560, 1))
+    check_batched(q, s_, m, "batch ICP, recorded inputs")
+    singles = [detect_organized(imgs[b], valids[b], bank, det_cfg, block=4,
+                                half_window=5, crop_lo=lo, crop_hi=hi)
+               for b in range(n_batch)]
+    n_acc, worst = 0, 0.0
+    for b, (r1, n1) in enumerate(singles):
+        pose = res_b.full_pose[b].cpu().numpy()
+        rot, trans = _err(pose, T_gt)
+        acc = bool(res_b.accepted[b])
+        diff = float((res_b.full_pose[b] - r1.full_pose).abs().max())
+        print(f"#   frame {b}: accepted {acc}, view {int(res_b.view_idx[b])}, "
+              f"rot_err {rot:.3f} deg, trans_err {trans * 1000:.3f} mm; its own "
+              f"detect_organized run: accepted {bool(r1.accepted)}, view "
+              f"{int(r1.view_idx)}, max |full_pose diff| {diff:.3e} {card}",
+              flush=True)
+        # two views can carry the same true pose, so the winning view may
+        # differ where their ranks tie to the last bits; the poses may not
+        if acc != bool(r1.accepted) or int(n_sel_b[b]) != int(n1) or (
+                acc and diff > 1e-3):
+            raise RuntimeError(f"frame {b} of the batch differs from its own "
+                               f"detect_organized run")
+        if acc:
+            n_acc += 1
+            worst = max(worst, diff)
+            if not (rot < 5.0 and trans < 0.020):
+                raise RuntimeError(f"the batch accepted a wrong pose: frame "
+                                   f"{b}, {rot:.1f} deg {trans * 1000:.1f} mm")
+    if n_acc < max(1, int(0.7 * n_batch)):
+        raise RuntimeError(f"only {n_acc} of {n_batch} frames accepted")
+    turns = {"single": [], "batch": []}
+    for which in ("single", "batch", "batch", "single"):
+        _, t = _timed_runs(run_org if which == "single" else run_batch)
+        turns[which] += t
+    busy_1, ops_1, peak_1 = _device_busy(run_org)
+    busy_b, ops_b, peak_b = _device_busy(run_batch)
+    med_b = statistics.median(turns["batch"])
+    print(f"# phase 11 batch of {n_batch} 640x480: {n_acc} of {n_batch} "
+          f"accepted, accepted poses within {worst:.3e} of their own runs; "
+          f"batch median {med_b:.3f} ms = {med_b / n_batch:.3f} ms per frame "
+          f"amortised, single frame median "
+          f"{statistics.median(turns['single']):.3f} ms (in turns single, "
+          f"batch, batch, single; 5 runs each); device operations per batch "
+          f"{ops_b} against {n_batch} x {ops_1} = {n_batch * ops_1}; device "
+          f"busy {busy_b:.3f} ms per batch against {busy_1:.3f} ms per single "
+          f"frame; peak {peak_b:.1f} MiB against {peak_1:.1f} MiB {card}",
+          flush=True)
+
     # --- the paths at small size, card vs CPU ------------------------------
     _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card)
 
@@ -773,22 +1158,34 @@ def main() -> None:
     # "launches_by_path" gives each path's own count, taken from 0 over one
     # run of it, and "timings" lists every shape with its launches per bank
     # build and per frame of each path
-    for row in timings[1] + timings[2]:
+    for row in timings[1] + timings[2] + timings["batched"]:
         row["launches"] = {path: n[tuple(row["shape"])]
                            for path, n in launches.items()}
-    main_row = {1: timings[1][0], 2: timings[2][2]}
+    main_row = {1: timings[1][0], 2: timings[2][2],
+                "batched": timings["batched"][0]}
     kernels = []
     by_path = {
         1: {"organized": org_k1, "generic": gen_k1, "segmented": seg_k1,
-            "two-part": two_k1},
+            "two-part": two_k1, "multi-instance": multi_k1, "hv": hv_k1,
+            "batch": bat_k1},
+        "batched": {"organized": 0, "generic": 0, "segmented": 0,
+                    "two-part": 0, "multi-instance": multi_kb, "hv": hv_kb,
+                    "batch": bat_kb},
         2: {"bank": bank_k2, "organized": org_k2, "generic": gen_k2,
-            "segmented": 0, "part banks": parts_k2, "two-part": 0}}
-    for kk, name, line, n_launches in ((1, "nn1", 59, two_k1),
-                                       (2, "knnk", 65, parts_k2)):
+            "segmented": 0, "part banks": parts_k2, "two-part": 0,
+            "multi-instance": multi_k2, "hv": hv_k2, "batch": bat_k2}}
+    # "launches": K1 over one batch of 8, its batch mode over the same
+    # batch, K2 over the part banks' build
+    for kk, name, src, line, n_launches in (
+            (1, "nn1", "nn1", "59", bat_k1),
+            ("batched", "nn1_batched", "nn1",
+             "92 (under jax.vmap: tpu_joints/pipelines/detect.py:1067, "
+             "tpu_joints/recognize/hv.py:140)", bat_kb),
+            (2, "knnk", "knnk", "65", parts_k2)):
         row = main_row[kk]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"tpu_joints_torch/neighbors/csrc/{name}.cu",
+            "source": f"tpu_joints_torch/neighbors/csrc/{src}.cu",
             "replaces": f"tpu_joints/neighbors/pallas_knn.py:{line}",
             "launches": n_launches, "launches_by_path": by_path[kk],
             "max_abs_err": max_err[kk],

@@ -13,7 +13,8 @@ import torch
 
 from tpu_joints_torch.neighbors import pallas_knn as k1
 from tpu_joints_torch.neighbors.bruteforce import knn
-from tpu_joints_torch.neighbors.knn_cases import CASES, STRADDLE, straddle
+from tpu_joints_torch.neighbors.knn_cases import (CASES, STRADDLE, batches,
+                                                  straddle)
 from tpu_joints_torch.segment.region_growing import region_growing
 
 
@@ -303,3 +304,73 @@ def test_choice_on_card_equals_cpu(n):
     u = prng.uniform_on(0, (256, 3), torch.device("cpu"))
     assert torch.equal(prng.choice(u.cuda(), p.cuda()).cpu(),
                        prng.choice(u, p))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(batches()))
+def test_nn1_batched_equals_plain_and_single_launches_on_card(name):
+    """K1's batch mode equals its plain version and B unbatched K1 launches
+    bit for bit, in one launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q, s, m = (torch.from_numpy(a).cuda() for a in batches()[name])
+    before = k1.nn1_batched.launches, k1.nn1.launches
+    d, i = k1.nn1_batched(q, s, m)
+    assert (k1.nn1_batched.launches, k1.nn1.launches) == (before[0] + 1,
+                                                          before[1])
+    dr, ir = k1.nn1_batched_reference(q, s, m)
+    torch.cuda.synchronize()
+    assert torch.equal(d, dr) and torch.equal(i, ir)
+    for b in range(q.shape[0]):
+        db, ib = k1.nn1(q[b], s[b], m[b])
+        assert torch.equal(d[b], db) and torch.equal(i[b], ib), b
+    empty = ~m.any(1)
+    assert bool((d[empty] >= 1e30).all()) and bool((i[empty] == 0).all())
+
+
+@pytest.mark.cuda
+def test_nn1_batched_rejects_mixed_devices_and_shapes():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    q = torch.zeros(2, 4, 3, device="cuda")
+    with pytest.raises(ValueError):
+        k1.nn1_batched(q, q, torch.ones(2, 4, dtype=torch.bool))
+    with pytest.raises(ValueError):
+        k1.nn1_batched(q, q[:1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [6, 20])
+def test_verify_hypotheses_on_card_equals_cpu(H):
+    """The hypothesis verification on the card: one launch of K1's batch
+    mode (scene -> instances) and one folded K1 launch (instances -> scene),
+    and the same verified mask as on the CPU, exhaustive (H = 6) and greedy
+    (H = 20)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.core.cloud import make_cloud
+    from tpu_joints_torch.recognize.hv import verify_hypotheses
+
+    rng = np.random.default_rng(H)
+    seen = (rng.uniform(-0.2, 0.2, size=(700, 3))
+            + np.array([0.0, 0.0, 1.0])).astype(np.float32)
+    good = np.concatenate([seen, np.full((324, 3), 1e6, np.float32)])
+    insts = np.stack([good, good + np.float32(0.003)] + [
+        good + rng.normal(scale=0.4, size=3).astype(np.float32)
+        for _ in range(H - 2)])
+    mask = np.zeros((H, 1024), bool)
+    mask[:, :700] = True
+    valid = np.ones(H, bool)
+    valid[3] = False
+    out = {}
+    for d in ("cuda", "cpu"):
+        before = k1.nn1_batched.launches, k1.nn1.launches
+        out[d] = verify_hypotheses(
+            torch.as_tensor(insts, device=d), torch.as_tensor(mask, device=d),
+            torch.as_tensor(valid, device=d),
+            make_cloud(seen, capacity=1024, device=d), inlier_threshold=0.005,
+            occlusion_threshold=0.001).cpu()
+        added = (k1.nn1_batched.launches - before[0], k1.nn1.launches - before[1])
+        assert added == ((1, 1) if d == "cuda" else (0, 0))
+    assert torch.equal(out["cuda"], out["cpu"])
+    assert bool(out["cuda"][0]) and not bool(out["cuda"][3])

@@ -371,14 +371,26 @@ def test_detect_parts_picks_right_part():
                                np.asarray(oj.result.obb.extents), atol=1e-3)
 
 
-@pytest.mark.parametrize("field,exc", [("hv_enabled", NotImplementedError),
+@pytest.mark.parametrize("field,exc", [("hv_enabled", None),
                                        ("coverage_accept", ValueError)])
 def test_detect_parts_refuses_what_it_cannot_honour(two_part, field, exc):
+    """``coverage_accept`` has no stage in ``detect_parts`` and raises;
+    ``hv_enabled`` runs the pooled verification (once over both parts'
+    candidates): nothing matches an all-zero scene, so no candidate is
+    valid and none is verified."""
     cfg = tconfig.DetectionConfig(**{**PARTS_CFG, field: 1})
     scene = Cloud(torch.zeros(1024, 3), torch.ones(1024, dtype=torch.bool),
                   torch.zeros(1024, 3))
-    with pytest.raises(exc):
-        tmulti.detect_parts(scene, two_part["tbanks"], cfg)
+    if exc is not None:
+        with pytest.raises(exc):
+            tmulti.detect_parts(scene, two_part["tbanks"], cfg)
+        return
+    out = tmulti.detect_parts(scene, two_part["tbanks"], cfg)
+    for res in out.per_part.values():
+        assert res.cand_verified.shape == res.cand_valid.shape == (2,)
+        assert res.cand_verified.dtype == torch.bool
+        assert not bool((res.cand_verified & ~res.cand_valid).any())
+        assert not bool(res.accepted)
 
 
 def test_build_bank_takes_caller_views(two_part):

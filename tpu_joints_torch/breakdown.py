@@ -1,6 +1,6 @@
 """Per-stage time of the port's detection paths on one CUDA card.
 
-    python -m tpu_joints_torch.breakdown [--runs 10] [--paths organized,generic,segmented,two-part]
+    python -m tpu_joints_torch.breakdown [--runs 10] [--paths organized,generic,segmented,two-part,instances,hv,batch]
 
 Builds the 42-view bench bank on the card (and, for the two-part path, the
 two 42-view part banks), then for each path — the organized
@@ -11,8 +11,12 @@ on the frame with the table (``synthetic.segmented_config``: its crop chain
 split into tile select + node normals, plane removal, lattice region
 growing, curvature filter + compaction) and the two-part
 ``detect_parts_organized`` chain on that frame
-(``synthetic.two_part_config``, the 84-view concatenated bank) — runs its
-stages one after another, synchronising after each:
+(``synthetic.two_part_config``, the 84-view concatenated bank), and, when
+asked for, the two-instance frame with ``synthetic.multi_instance_config``
+(``instances``), the same with the hypothesis verification on (``hv``:
+``synthetic.hv_config``; the verification also alone) and
+``detect_organized_batch`` on the bench's 8 jittered frames (``batch``) —
+runs its stages one after another, synchronising after each:
 
 * wall ms: median over ``--runs`` warm runs of the host clock around the
   stage (launch overhead included);
@@ -139,13 +143,16 @@ def main() -> None:
     def put(**kw):
         s.update(kw)
 
-    organized = [
-        ("ingest", lambda: put(ing=ingest_organized_blocks(
-            xyz, valid, block=4, half_window=5,
-            capacity=org_cfg.scene_capacity, crop_lo=lo, crop_hi=hi))),
-        ("prepare", lambda: put(feats=D.prepare_scene(
-            s["ing"][0], org_cfg, None, s["ing"][1], s["ing"][2]))),
-    ]
+    def organized_head(img, val, c, clo, chi):
+        return [
+            ("ingest", lambda: put(ing=ingest_organized_blocks(
+                img, val, block=4, half_window=5, capacity=c.scene_capacity,
+                crop_lo=clo, crop_hi=chi))),
+            ("prepare", lambda: put(feats=D.prepare_scene(
+                s["ing"][0], c, None, s["ing"][1], s["ing"][2]))),
+        ]
+
+    organized = organized_head(xyz, valid, org_cfg, lo, hi)
     bare = dataclasses.replace(gen_cfg, segment_scene=False)
     generic = [
         ("normals (K2)", lambda: put(nc=estimate_normals(
@@ -211,6 +218,21 @@ def main() -> None:
         part_banks = syn.build_part_banks(two_cfg, device=dev)
         _, cat = multi._cat_for_parts(part_banks)
         paths.append(("two-part", two_cfg, segmented_head(two_cfg), cat, 2))
+    two_h, two_valid_h, _, _ = syn.two_instance_frame()
+    two = torch.as_tensor(two_h, device=dev)
+    two_valid = torch.as_tensor(two_valid_h, device=dev)
+    wlo = torch.as_tensor(syn.WIDE_LO, device=dev)
+    whi = torch.as_tensor(syn.WIDE_HI, device=dev)
+    multi_cfg, hv_cfg = syn.multi_instance_config(), syn.hv_config()
+    n_batch = 8
+    imgs = torch.as_tensor(syn.batch_frames(xyz_h, n_batch), device=dev)
+    valids = valid[None].expand(n_batch, -1, -1).contiguous()
+    paths += [("instances", multi_cfg,
+               organized_head(two, two_valid, multi_cfg, wlo, whi), bank, 1),
+              ("hv", hv_cfg, organized_head(two, two_valid, hv_cfg, wlo, whi),
+               bank, 1),
+              ("batch", org_cfg, organized_head(imgs, valids, org_cfg, lo, hi),
+               bank, 1)]
     for label, c, head, b, n_parts in paths:
         if label not in want:
             continue
@@ -223,9 +245,23 @@ def main() -> None:
                 s["feats"], b, s["corrs"], c))),
             ("refine" + (" + clustered OBB (K2)" if c.obb_largest_cluster
                          else ""), lambda c=c, b=b, n=n_parts: put(
-                res=D.refine_instances(s["feats"], b, s["inst"],
-                                       s["corrs"].count(), c, n_parts=n))),
+                res=D.refine_instances(
+                    s["feats"], b, s["inst"],
+                    s["corrs"].valid.reshape(
+                        n_batch if label == "batch" else 1, -1).sum(
+                            1, dtype=torch.int32), c, n_parts=n))),
         ]
+        if label == "hv":
+            def verify(c=c, b=b):
+                r = s["res"]
+                D.verify_hypotheses(
+                    *D._registered_views(b, r.cand_views, r.cand_poses),
+                    r.cand_valid, s["feats"].cloud,
+                    inlier_threshold=c.hv_inlier_threshold,
+                    outlier_regularizer=c.hv_regularizer,
+                    occlusion_threshold=c.hv_occlusion_threshold)
+
+            tail.append(("hypothesis verification alone", verify))
         for name, wall, dev_ms, n in _stage_table(head + tail, args.runs):
             print(f"# breakdown {label} {name}: wall {wall:.3f} ms (median of "
                   f"{args.runs}, synced per stage), device {dev_ms:.3f} ms, "
@@ -239,6 +275,14 @@ def main() -> None:
                                                     seg_cfg, **geo),
             "two-part": lambda: multi.detect_parts_organized(
                 tab, tab_valid, part_banks, two_cfg, **geo),
+            "instances": lambda: D.detect_organized(
+                two, two_valid, bank, multi_cfg, block=4, half_window=5,
+                crop_lo=wlo, crop_hi=whi),
+            "hv": lambda: D.detect_organized(
+                two, two_valid, bank, hv_cfg, block=4, half_window=5,
+                crop_lo=wlo, crop_hi=whi),
+            "batch": lambda: D.detect_organized_batch(imgs, valids, bank,
+                                                      org_cfg, **geo),
         }[label]
         default = lattice.SWEEPS_PER_CHECK
         # the segmented chain also with the lattice region growing never
@@ -253,7 +297,8 @@ def main() -> None:
             print(f"# breakdown {label} end to end{note}: median {med:.3f} ms "
                   f"(quartiles {q1:.3f} / {q3:.3f}, min {mn:.3f}, max "
                   f"{mx:.3f}, n = {2 * args.runs}); device busy {busy:.3f} ms "
-                  f"per frame, {n} device operations; peak device memory "
+                  f"per {'batch of 8' if label == 'batch' else 'frame'}, {n} "
+                  f"device operations; peak device memory "
                   f"{mem:.1f} MiB [{smi}]", flush=True)
         if label == "segmented":
             for per_check in schedules:

@@ -17,9 +17,11 @@ def transform_points(xyz: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
 
 
 def masked_centroid(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Centroid over valid points; [3]. Safe for empty masks."""
+    """Centroid over valid points of [..., N, 3]; [..., 3]. Safe for empty
+    masks."""
     w = mask.to(xyz.dtype)
-    return (xyz * w[:, None]).sum(0) / torch.clamp_min(w.sum(), 1.0)
+    return (xyz * w[..., None]).sum(-2) / torch.clamp_min(
+        w.sum(-1, keepdim=True), 1.0)
 
 
 def masked_covariance(xyz, mask, centroid=None) -> torch.Tensor:
@@ -27,14 +29,15 @@ def masked_covariance(xyz, mask, centroid=None) -> torch.Tensor:
     if centroid is None:
         centroid = masked_centroid(xyz, mask)
     w = mask.to(xyz.dtype)
-    d = (xyz - centroid) * w[:, None]
-    return (d.T @ d) / torch.clamp_min(w.sum(), 1.0)
+    d = (xyz - centroid[..., None, :]) * w[..., None]
+    return (d.transpose(-1, -2) @ d) / torch.clamp_min(
+        w.sum(-1), 1.0)[..., None, None]
 
 
 def masked_minmax(xyz: torch.Tensor, mask: torch.Tensor):
-    """(min[3], max[3]) over valid points."""
-    lo = torch.where(mask[:, None], xyz, SENTINEL).amin(0)
-    hi = torch.where(mask[:, None], xyz, -SENTINEL).amax(0)
+    """(min[..., 3], max[..., 3]) over valid points of [..., N, 3]."""
+    lo = torch.where(mask[..., None], xyz, SENTINEL).amin(-2)
+    hi = torch.where(mask[..., None], xyz, -SENTINEL).amax(-2)
     return lo, hi
 
 
@@ -110,37 +113,40 @@ def invert_rigid(T: torch.Tensor) -> torch.Tensor:
 
 
 def rotation_from_matrix_to_quaternion(R: torch.Tensor) -> torch.Tensor:
-    """Rotation matrix [3, 3] → quaternion [w, x, y, z], branch-free."""
-    m00, m01, m02 = R[0, 0], R[0, 1], R[0, 2]
-    m10, m11, m12 = R[1, 0], R[1, 1], R[1, 2]
-    m20, m21, m22 = R[2, 0], R[2, 1], R[2, 2]
+    """Rotation matrix [..., 3, 3] → quaternion [..., 4] as [w, x, y, z],
+    branch-free."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
     tr = m00 + m11 + m22
     qw = torch.sqrt(torch.clamp_min(1.0 + tr, 1e-12)) / 2.0
     q0 = torch.stack([qw, (m21 - m12) / (4 * qw), (m02 - m20) / (4 * qw),
-                      (m10 - m01) / (4 * qw)])
+                      (m10 - m01) / (4 * qw)], -1)
     qx = torch.sqrt(torch.clamp_min(1.0 + m00 - m11 - m22, 1e-12)) / 2.0
     q1 = torch.stack([(m21 - m12) / (4 * qx), qx, (m01 + m10) / (4 * qx),
-                      (m02 + m20) / (4 * qx)])
+                      (m02 + m20) / (4 * qx)], -1)
     qy = torch.sqrt(torch.clamp_min(1.0 - m00 + m11 - m22, 1e-12)) / 2.0
     q2 = torch.stack([(m02 - m20) / (4 * qy), (m01 + m10) / (4 * qy), qy,
-                      (m12 + m21) / (4 * qy)])
+                      (m12 + m21) / (4 * qy)], -1)
     qz = torch.sqrt(torch.clamp_min(1.0 - m00 - m11 + m22, 1e-12)) / 2.0
     q3 = torch.stack([(m10 - m01) / (4 * qz), (m02 + m20) / (4 * qz),
-                      (m12 + m21) / (4 * qz), qz])
-    cand = torch.stack([q0, q1, q2, q3])
+                      (m12 + m21) / (4 * qz), qz], -1)
+    cand = torch.stack([q0, q1, q2, q3])                   # [4, ..., 4]
     pivots = torch.stack([tr, m00 - m11 - m22, m11 - m00 - m22,
                           m22 - m00 - m11])
-    q = cand.index_select(0, torch.argmax(pivots).reshape(1))[0]
-    return q / norm(q)
+    pick = torch.argmax(pivots, dim=0)[None, ..., None].expand(
+        1, *cand.shape[1:])
+    q = torch.gather(cand, 0, pick)[0]
+    return q / norm(q, keepdim=True)
 
 
 def quaternion_to_euler(q: torch.Tensor) -> torch.Tensor:
-    """Quaternion [w, x, y, z] → roll/pitch/yaw (radians), ZYX."""
-    w, x, y, z = q[0], q[1], q[2], q[3]
+    """Quaternion [..., 4] as [w, x, y, z] → roll/pitch/yaw (radians), ZYX."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
     roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
     pitch = torch.asin(torch.clamp(2 * (w * y - z * x), -1.0, 1.0))
     yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
-    return torch.stack([roll, pitch, yaw])
+    return torch.stack([roll, pitch, yaw], -1)
 
 
 def fold_euler_90(euler: torch.Tensor) -> torch.Tensor:

@@ -16,9 +16,10 @@ import torch.nn.functional as F
 
 
 def _window_sum(a: torch.Tensor, r: int, dim: int) -> torch.Tensor:
-    """Zero-padded (2r+1)-tap sum along ``dim``, accumulated in tap order."""
+    """Zero-padded (2r+1)-tap sum along ``dim`` (negative: counted from the
+    last axis), accumulated in tap order."""
     L = a.shape[dim]
-    pad = [0, 0] * (a.ndim - 1 - dim) + [r, r]
+    pad = [0, 0] * (-1 - dim) + [r, r]
     p = F.pad(a, pad)
     out = p.narrow(dim, 0, L)
     for t in range(1, 2 * r + 1):
@@ -27,16 +28,18 @@ def _window_sum(a: torch.Tensor, r: int, dim: int) -> torch.Tensor:
 
 
 def _box_sums(planes: torch.Tensor, r: int) -> torch.Tensor:
-    """Separable (2r+1)² box sum of [C, H, W] planes, SAME zero padding."""
+    """Separable (2r+1)² box sum of [..., H, W] planes, SAME zero padding."""
     if r == 0:
         return planes
-    return _window_sum(_window_sum(planes, r, 1), r, 2)
+    return _window_sum(_window_sum(planes, r, -2), r, -1)
 
 
 def _max3x3(a: torch.Tensor) -> torch.Tensor:
-    """3x3 SAME max over an [H, W] plane (the window always holds its
+    """3x3 SAME max over [..., H, W] planes (the window always holds its
     centre, so the pool's -inf border equals any smaller init value)."""
-    return F.max_pool2d(a[None, None], 3, stride=1, padding=1)[0, 0]
+    H, W = a.shape[-2:]
+    return F.max_pool2d(a.reshape(-1, 1, H, W), 3, stride=1,
+                        padding=1).reshape(a.shape)
 
 
 def _safe_radius(z: torch.Tensor, valid: torch.Tensor, r: int,
@@ -60,7 +63,8 @@ def organized_moments(xyz_img: torch.Tensor, valid: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(moments float32[10, H, W], r_px int32[H, W]) — per-pixel window sums
     of (count, x, y, z, xx, xy, xz, yy, yz, zz) over that pixel's
-    edge-shrunken window, and the half-window it used."""
+    edge-shrunken window, and the half-window it used. A batch of frames
+    [B, H, W, 3] gives moments [10, B, H, W] and r_px [B, H, W]."""
     x = torch.where(valid, xyz_img[..., 0], 0.0).to(torch.float32)
     y = torch.where(valid, xyz_img[..., 1], 0.0).to(torch.float32)
     z = torch.where(valid, xyz_img[..., 2], 0.0).to(torch.float32)

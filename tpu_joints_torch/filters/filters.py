@@ -22,14 +22,16 @@ _INVALID_ID = 1 << 30
 
 def voxel_ids(xyz: torch.Tensor, mask: torch.Tensor, leaf: float) -> torch.Tensor:
     """int32[N] voxel id per point; invalid points get a sentinel id.
-    The grid origin is the masked minimum corner."""
-    lo = torch.where(mask[:, None], xyz, SENTINEL).amin(0)
+    The grid origin is the masked minimum corner ([B, N] for a batch of
+    clouds, each on its own grid)."""
+    lo = torch.where(mask[..., None], xyz, SENTINEL).amin(-2, keepdim=True)
     # divide by a device tensor: CUDA turns division by a host scalar into a
     # reciprocal multiply, which can move a point across a voxel boundary
     leaf_t = torch.full((), leaf, dtype=xyz.dtype, device=xyz.device)
     ijk = torch.floor((xyz - lo) / leaf_t).to(torch.int32)
     ijk = torch.clamp(ijk, 0, _GRID_MAX)
-    ids = (ijk[:, 0] << (2 * _GRID_BITS)) | (ijk[:, 1] << _GRID_BITS) | ijk[:, 2]
+    ids = ((ijk[..., 0] << (2 * _GRID_BITS)) | (ijk[..., 1] << _GRID_BITS)
+           | ijk[..., 2])
     return torch.where(mask, ids, _INVALID_ID).to(torch.int32)
 
 
@@ -51,12 +53,19 @@ def _segment_min(values: torch.Tensor, seg: torch.Tensor, n: int,
 
 def uniform_sample_mask(cloud: Cloud, radius: float) -> torch.Tensor:
     """bool[N]: per voxel of size ``radius``, the valid point nearest the
-    voxel centroid (PCL UniformSampling); ties to the lowest sorted lane."""
-    N = cloud.capacity
+    voxel centroid (PCL UniformSampling); ties to the lowest sorted lane.
+    A batch of clouds ([B, N, 3], [B, N]) is sampled in one pass, the voxel
+    ids offset per cloud so that no segment spans two clouds."""
+    shape = cloud.mask.shape
     ids = voxel_ids(cloud.xyz, cloud.mask, radius)
+    if len(shape) == 2:
+        ids = ids.long() + (torch.arange(shape[0], device=ids.device)
+                            << 31)[:, None]
+    ids = ids.reshape(-1)
+    N = ids.shape[0]
     order, seg = _sorted_segments(ids)
-    xyz_s = cloud.xyz[order]
-    mask_s = cloud.mask[order]
+    xyz_s = cloud.xyz.reshape(N, 3)[order]
+    mask_s = cloud.mask.reshape(N)[order]
     w = mask_s.to(torch.float32)
     sums = segment_sum(xyz_s * w[:, None], seg, N)
     cnts = segment_sum(w, seg, N)
@@ -70,38 +79,50 @@ def uniform_sample_mask(cloud: Cloud, radius: float) -> torch.Tensor:
     is_winner = (lane == winner_lane[seg]) & mask_s
     keep = torch.zeros(N, dtype=torch.bool, device=ids.device)
     keep[order] = is_winner
-    return keep
+    return keep.reshape(shape)
 
 
 def compact_indices(mask: torch.Tensor, capacity: int
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Order-preserving padded compaction to ``capacity`` lanes: (idx int64,
-    valid bool). Over capacity, Bresenham thinning keeps exactly
-    ``capacity`` evenly spaced selections instead of a prefix."""
+    """Order-preserving padded compaction to ``capacity`` lanes along the
+    last axis: (idx int64[..., capacity], valid bool[..., capacity]). Over
+    capacity, Bresenham thinning keeps exactly ``capacity`` evenly spaced
+    selections instead of a prefix."""
     sel = mask.to(torch.int32)
-    n = sel.sum()
-    rank = torch.cumsum(sel, 0) - 1
+    n = sel.sum(-1, keepdim=True)
+    rank = torch.cumsum(sel, -1) - 1
     s = torch.full((), float(capacity), dtype=torch.float32,
                    device=mask.device) / torch.clamp_min(n, 1).to(torch.float32)
     r = rank.to(torch.float32)
     mask = mask & (torch.floor(r * s) > torch.floor((r - 1.0) * s))
-    N = mask.shape[0]
+    N = mask.shape[-1]
     lane = torch.arange(N, dtype=torch.int64, device=mask.device)
-    rank2 = torch.cumsum(mask.to(torch.int64), 0) - 1
+    rank2 = torch.cumsum(mask.to(torch.int64), -1) - 1
     target = torch.where(mask, rank2, capacity)
     # kept lanes have unique ranks; dropped ones all land in the dump slot
-    idx = torch.zeros(capacity + 1, dtype=torch.int64, device=mask.device)
-    idx = idx.scatter(0, target, lane)[:capacity]
-    n_kept = torch.clamp_max(mask.sum(), capacity)
+    idx = torch.zeros(mask.shape[:-1] + (capacity + 1,), dtype=torch.int64,
+                      device=mask.device)
+    idx = idx.scatter(-1, target, lane.expand_as(target))[..., :capacity]
+    n_kept = torch.clamp_max(mask.sum(-1, keepdim=True), capacity)
     valid = torch.arange(capacity, device=mask.device) < n_kept
     return idx, valid
+
+
+def gather_lanes(t: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Lanes ``idx`` [..., K] of ``t`` [..., N] or [..., N, C], per leading
+    (batch) entry: ``t[idx]`` for one cloud."""
+    if idx.ndim == 1:
+        return t[idx]
+    if t.ndim == idx.ndim:
+        return torch.gather(t, -1, idx)
+    return torch.gather(t, -2, idx[..., None].expand(*idx.shape, t.shape[-1]))
 
 
 def compact_cloud(cloud: Cloud, select: torch.Tensor, capacity: int
                   ) -> Tuple[Cloud, torch.Tensor]:
     """Gather selected points into a smaller padded Cloud; also returns the
-    original lane index of each output lane."""
+    original lane index of each output lane (per cloud of a batch)."""
     idx, valid = compact_indices(select & cloud.mask, capacity)
-    xyz = torch.where(valid[:, None], cloud.xyz[idx], SENTINEL)
-    rgb = torch.where(valid[:, None], cloud.rgb[idx], 0.0)
+    xyz = torch.where(valid[..., None], gather_lanes(cloud.xyz, idx), SENTINEL)
+    rgb = torch.where(valid[..., None], gather_lanes(cloud.rgb, idx), 0.0)
     return Cloud(xyz=xyz, mask=valid, rgb=rgb), idx

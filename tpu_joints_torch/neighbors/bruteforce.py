@@ -8,7 +8,10 @@ matching, or k > 32, such as the k_max support gathers) computes the
 expansion form ``|q|² + |s|² − 2q·s`` clamped at 0, as the JAX path does on
 the CPU, and keeps the ``k`` smallest by a stable sort. Either way ties go
 to the lowest source index, the result is in ascending order, and slots
-without a valid source carry (3e38, 0), the JAX path's padding.
+without a valid source carry (3e38, 0), the JAX path's padding. ``knn_batched`` is the same search with a leading
+batch axis on every argument, entry b searching entry b's sources (what
+``jax.vmap`` of the JAX function computes): k = 1 in 3-D is one launch of
+K1's batch mode, everything else the expansion form as one batched product.
 """
 from __future__ import annotations
 
@@ -18,7 +21,8 @@ import numpy as np
 import torch
 
 from tpu_joints_torch.core.ops import fused_sumsq
-from tpu_joints_torch.neighbors.pallas_knn import INF, MAX_K, knnk, nn1
+from tpu_joints_torch.neighbors.pallas_knn import (INF, MAX_K, knnk, nn1,
+                                                   nn1_batched)
 
 
 # query rows per distance block: bounds the [rows, N] matrix being sorted
@@ -65,13 +69,55 @@ def knn(query: torch.Tensor, source: torch.Tensor, k: int,
     return d, i.to(torch.int32)
 
 
+def knn_batched(query: torch.Tensor, source: torch.Tensor, k: int,
+                source_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest valid sources of batch entry b per row of ``query[b]``:
+    query [B, M, D], source [B, N, D], source_mask bool[B, N] → (dist_sq
+    float32[B, M, k], idx int32[B, M, k], indices within the entry).
+
+    3-D k = 1 goes to kernel K1's batch mode in one launch. The rest is the
+    expansion form of :func:`knn` over the batch (K2 has no batch mode; a
+    3-D 2 <= k <= 32 search is served here as well), whose batched product
+    may round the last bit differently from B separate products.
+    """
+    B, M, D = query.shape
+    N = source.shape[1]
+    if k == 1 and D == 3:
+        return nn1_batched(query, source, source_mask)
+    if source_mask is None:
+        source_mask = torch.ones((B, N), dtype=torch.bool, device=source.device)
+    sqn = fused_sumsq if D == 3 else (lambda v: (v * v).sum(-1))
+    s2 = sqn(source)
+    kk = min(k, N)
+    ds, js = [], []
+    for r in range(0, M, max(1, _ROWS // B)):
+        q = query[:, r:r + max(1, _ROWS // B)]
+        d = sqn(q)[:, :, None] + s2[:, None, :] \
+            - 2.0 * torch.bmm(q, source.transpose(1, 2))
+        d = torch.clamp_min(d, 0.0)
+        d = torch.where(source_mask[:, None, :], d, INF)
+        v, i = torch.sort(d, dim=2, stable=True)
+        ds.append(v[:, :, :kk])
+        js.append(i[:, :, :kk])
+    d = torch.cat(ds, 1) if ds else query.new_zeros((B, 0, kk))
+    i = torch.cat(js, 1) if js else query.new_zeros((B, 0, kk), dtype=torch.int64)
+    if kk < k:
+        d = torch.cat([d, d.new_full((B, M, k - kk), INF)], 2)
+        i = torch.cat([i, i.new_zeros((B, M, k - kk))], 2)
+    i = torch.where(d < INF, i, torch.zeros_like(i))
+    return d, i.to(torch.int32)
+
+
 def radius_neighbors(query: torch.Tensor, source: torch.Tensor, radius: float,
                      k_max: int, source_mask: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The ``k_max`` nearest points inside ``radius``.
+    """The ``k_max`` nearest points inside ``radius``; with a leading
+    batch axis on every argument, per batch entry.
 
     Returns (idx int32[M, k_max], valid bool[M, k_max], dist_sq f32[M, k_max]).
     """
-    d, i = knn(query, source, k_max, source_mask=source_mask)
+    search = knn_batched if query.ndim == 3 else knn
+    d, i = search(query, source, k_max, source_mask=source_mask)
     r = np.float32(radius)
     return i, d <= float(r * r), d

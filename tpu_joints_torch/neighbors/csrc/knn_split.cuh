@@ -103,7 +103,10 @@ __device__ __forceinline__ int stage_tile(
 
 // One block: kThreads / S query rows; rows past M compute on a dummy query
 // (they must still take part in the staging and the shuffles) and write
-// nothing.
+// nothing. blockIdx.y is the batch entry: entry b searches its own M query
+// rows against its own N sources and mask (the arrays are [B, M, 3],
+// [B, N, 3], [B, N] and [B, M, k], contiguous), so the staging compacts each
+// entry's sources by that entry's mask; an unbatched launch is B = 1.
 template <int K>
 __global__ void __launch_bounds__(kThreads)
 knn_split_kernel(const float* __restrict__ query,
@@ -114,6 +117,12 @@ knn_split_kernel(const float* __restrict__ query,
   __shared__ int pos[kTile];
   __shared__ int wcount[32];
 
+  const long long b = blockIdx.y;
+  query += 3 * b * M;
+  source += 3 * b * N;
+  mask += b * N;
+  out_d += b * M * k;
+  out_i += b * M * k;
   const int gid = blockIdx.x * kThreads + threadIdx.x;
   const int row = gid / S;
   const int g = gid & (S - 1);
@@ -202,25 +211,28 @@ int resident_threads() {
   return n;
 }
 
-// Lanes per row: the largest power of two (at most 32) with which M rows
-// still fit on the card in one wave -- more lanes shorten each lane's
-// sweep, a second wave would double the time; 1 when M rows alone do not
-// fit.
-inline int split_for(int M, int resident) {
+// Lanes per row: the largest power of two (at most 32) with which all
+// `rows` query rows of the launch (B * M) still fit on the card in one wave
+// -- more lanes shorten each lane's sweep, a second wave would double the
+// time; 1 when the rows alone do not fit.
+inline int split_for(long long rows, int resident) {
   int s = 1;
-  while (s < 32 && static_cast<long long>(M) * (2 * s) <= resident) s <<= 1;
+  while (s < 32 && rows * (2 * s) <= resident) s <<= 1;
   return s;
 }
 
-// Launches on `stream` and returns the launch's cudaError_t.
+// Launches B batch entries (grid.y; at most 65535) on `stream` and returns
+// the launch's cudaError_t.
 template <int K>
 int launch_knn(const float* query, const float* source, const uint8_t* mask,
-               float* out_d, int* out_i, int M, int N, int k,
+               float* out_d, int* out_i, int B, int M, int N, int k,
                cudaStream_t stream) {
-  const int S = split_for(M, resident_threads<K>());
+  if (B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const int S = split_for(static_cast<long long>(B) * M, resident_threads<K>());
   const long long threads = static_cast<long long>(M) * S;
-  const int blocks = static_cast<int>((threads + kThreads - 1) / kThreads);
-  knn_split_kernel<K><<<blocks, kThreads, 0, stream>>>(
+  const dim3 grid(static_cast<unsigned>((threads + kThreads - 1) / kThreads),
+                  static_cast<unsigned>(B));
+  knn_split_kernel<K><<<grid, kThreads, 0, stream>>>(
       query, source, mask, out_d, out_i, M, N, k, S);
   return static_cast<int>(cudaGetLastError());
 }

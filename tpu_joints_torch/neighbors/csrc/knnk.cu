@@ -45,10 +45,10 @@ extern "C" int tj_knnk(const float* query, const float* source,
   if (M <= 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   using tj::launch_knn;
-  if (k <= 2) return launch_knn<2>(query, source, mask, out_d, out_i, M, N, k, s);
-  if (k <= 4) return launch_knn<4>(query, source, mask, out_d, out_i, M, N, k, s);
-  if (k <= 8) return launch_knn<8>(query, source, mask, out_d, out_i, M, N, k, s);
+  if (k <= 2) return launch_knn<2>(query, source, mask, out_d, out_i, 1, M, N, k, s);
+  if (k <= 4) return launch_knn<4>(query, source, mask, out_d, out_i, 1, M, N, k, s);
+  if (k <= 8) return launch_knn<8>(query, source, mask, out_d, out_i, 1, M, N, k, s);
   if (k <= 16)
-    return launch_knn<16>(query, source, mask, out_d, out_i, M, N, k, s);
-  return launch_knn<32>(query, source, mask, out_d, out_i, M, N, k, s);
+    return launch_knn<16>(query, source, mask, out_d, out_i, 1, M, N, k, s);
+  return launch_knn<32>(query, source, mask, out_d, out_i, 1, M, N, k, s);
 }

@@ -28,6 +28,23 @@ extern "C" int tj_nn1(const float* query, const float* source,
                       const uint8_t* mask, float* out_d, int* out_i, int M,
                       int N, void* stream) {
   if (M <= 0) return 0;
-  return tj::launch_knn<1>(query, source, mask, out_d, out_i, M, N, 1,
+  return tj::launch_knn<1>(query, source, mask, out_d, out_i, 1, M, N, 1,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K1's batch mode: what the TPU kernel computes under jax.vmap, where the
+// batch becomes an outer grid axis. Entry b of query f32[B, M, 3] searches
+// entry b of source f32[B, N, 3] under mask u8[B, N]; out_d f32[B, M] and
+// out_i i32[B, M] (indices within the entry). One launch, the batch on
+// grid.y; the lanes per row are chosen from all B * M resident rows, so a
+// batch that fills the card alone (48 x 8192 rows) runs at S = 1-2 where one
+// entry of it would run at S = 16. Each entry's result equals tj_nn1 on that
+// entry bit for bit: a lane count only changes which lane visits a source,
+// and the merge is the same lexicographic arg-min.
+extern "C" int tj_nn1_batched(const float* query, const float* source,
+                              const uint8_t* mask, float* out_d, int* out_i,
+                              int B, int M, int N, void* stream) {
+  if (B <= 0 || M <= 0) return 0;
+  return tj::launch_knn<1>(query, source, mask, out_d, out_i, B, M, N, 1,
                            static_cast<cudaStream_t>(stream));
 }

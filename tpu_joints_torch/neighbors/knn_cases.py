@@ -84,3 +84,40 @@ def straddle(M, N, k, masked):
     q = rng.normal(size=(M, 3)).astype(np.float32)
     s = rng.normal(size=(N, 3)).astype(np.float32)
     return q, s, rng.uniform(size=N) >= masked
+
+
+def _pad_sources(s, m, n):
+    """(s, m) padded to n sources with masked copies of source 0."""
+    pad = n - len(s)
+    return (np.concatenate([s, np.repeat(s[:1], pad, 0)]),
+            np.concatenate([m, np.zeros(pad, bool)]))
+
+
+def batches():
+    """Inputs of K1's batch mode: name -> (query f32[B, M, 3], source
+    f32[B, N, 3], mask bool[B, N]). The single-launch cases above stacked
+    into one batch (their sources padded to a common N with masked points),
+    an entry with no valid source between two that have some, B = 1, masks
+    that differ per entry from none masked to one source left, and B · M
+    around the row counts at which the lanes per row change."""
+    out = {}
+    stacked = [c(1) for c in (scan_approach, all_identical, masked_twin, n33)]
+    n = max(len(s) for _, s, _ in stacked)
+    padded = [(q,) + _pad_sources(s, m, n) for q, s, m in stacked]
+    out["stacked_cases"] = tuple(np.stack(x) for x in zip(*padded))
+    rng = np.random.default_rng(2024)
+
+    def rand(B, M, N, shares):
+        q = rng.normal(size=(B, M, 3)).astype(np.float32)
+        s = rng.normal(size=(B, N, 3)).astype(np.float32)
+        m = rng.uniform(size=(B, N)) >= np.asarray(shares)[:, None]
+        return q, s, m
+
+    out["entry_without_valid_source"] = rand(3, 70, 100, [0.2, 1.0, 0.2])
+    out["one_entry"] = rand(1, 129, 1100, [0.1])
+    q, s, m = rand(4, 65, 1500, [0.0, 0.25, 0.9, 1.0])
+    m[3, 777] = True                             # one source left
+    out["masks_differ"] = (q, s, m)
+    out["many_entries"] = rand(48, 100, 70, np.linspace(0.0, 0.9, 48))
+    out["rows_fill_the_card"] = rand(8, 8200, 257, [0.3] * 8)
+    return out

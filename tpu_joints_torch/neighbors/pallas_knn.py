@@ -2,8 +2,12 @@
 
 Counterpart of ``tpu_joints/neighbors/pallas_knn.py::knn_pallas``: K1 is
 its k=1 mode (``csrc/nn1.cu``), K2 its 2 <= k <= 32 mode (``csrc/knnk.cu``);
-both instantiate the split-row kernel of ``csrc/knn_split.cuh``. Each
-source is compiled with nvcc for ``sm_90a`` on first use into
+both instantiate the split-row kernel of ``csrc/knn_split.cuh``. K1 also
+has the batch mode the TPU kernel gains under ``jax.vmap`` (the batch as an
+outer grid axis): ``nn1_batched`` searches entry b of ``query [B, M, 3]`` in
+entry b of ``source [B, N, 3]`` under ``source_mask [B, N]``, in one launch
+(``tj_nn1_batched`` in ``csrc/nn1.cu``), equal bit for bit to B ``nn1``
+calls. Each source is compiled with nvcc for ``sm_90a`` on first use into
 ``tpu_joints_torch/_build/`` (keyed by a hash of the source, the shared
 headers and the flags) and
 bound with ctypes -- no ninja, no PyTorch headers. :func:`build_all` starts
@@ -15,10 +19,11 @@ masked ones; the k smallest per row in ascending order, ties to the lowest
 source index; a slot without a valid source is ``(3e38, 0)``. Returns
 ``(dist_sq f32[M, k], idx i32[M, k])``.
 
-``nn1`` and ``knnk`` pick by the query tensor's device only: CPU tensors
-take the plain versions :func:`nn1_reference` / :func:`knnk_reference`,
-CUDA tensors launch the kernel (a failed build or launch raises).
-``nn1.launches`` and ``knnk.launches`` count kernel launches.
+``nn1``, ``nn1_batched`` and ``knnk`` pick by the query tensor's device
+only: CPU tensors take the plain versions :func:`nn1_reference` /
+:func:`nn1_batched_reference` / :func:`knnk_reference`, CUDA tensors launch
+the kernel (a failed build or launch raises). ``nn1.launches``,
+``nn1_batched.launches`` and ``knnk.launches`` count kernel launches.
 """
 from __future__ import annotations
 
@@ -47,9 +52,13 @@ _BLOCK_ELEMS = 1 << 24
 _NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel -> (C entry point, its argument types)
-_ENTRY = {"nn1": ("tj_nn1", [_P] * 5 + [_I, _I, _P]),
-          "knnk": ("tj_knnk", [_P] * 5 + [_I, _I, _I, _P])}
+# source file -> {C entry point: its argument types}; the wrapper ``name``
+# launches entry ``tj_<name>``
+_ENTRY = {"nn1": {"tj_nn1": [_P] * 5 + [_I, _I, _P],
+                  "tj_nn1_batched": [_P] * 5 + [_I, _I, _I, _P]},
+          "knnk": {"tj_knnk": [_P] * 5 + [_I, _I, _I, _P]}}
+_SOURCE_OF = {entry[3:]: src for src, entries in _ENTRY.items()
+              for entry in entries}
 _build_lock = threading.Lock()
 
 
@@ -106,17 +115,17 @@ def _compile(names) -> None:
 
 @functools.lru_cache(maxsize=None)
 def load_library(name: str = "nn1") -> ctypes.CDLL:
-    """Build (once per source hash) and bind kernel ``name``'s C launcher.
+    """Build (once per source hash) source ``name`` and bind its C launchers.
 
     Raises ``RuntimeError`` with the compiler's output if nvcc fails.
     """
     with _build_lock:
         _compile([name])
         lib = ctypes.CDLL(str(_library_path(name)))
-    entry, argtypes = _ENTRY[name]
-    fn = getattr(lib, entry)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    for entry, argtypes in _ENTRY[name].items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
     return lib
 
 
@@ -129,20 +138,25 @@ def build_all() -> None:
 
 
 def _check(name: str, query: torch.Tensor, source: torch.Tensor,
-           source_mask: Optional[torch.Tensor]) -> torch.Tensor:
-    if query.ndim != 2 or query.shape[1] != 3 or source.ndim != 2 \
-            or source.shape[1] != 3:
-        raise ValueError(f"{name} takes [M, 3] and [N, 3] points, got "
-                         f"{tuple(query.shape)} and {tuple(source.shape)}")
+           source_mask: Optional[torch.Tensor], batch: bool = False
+           ) -> torch.Tensor:
+    """Validate a ([B,] M, 3) query against a ([B,] N, 3) source; returns
+    the mask ([B,] N), all true when none was given."""
+    nd = 3 if batch else 2
+    lead = "[B, " if batch else "["
+    if query.ndim != nd or query.shape[-1] != 3 or source.ndim != nd \
+            or source.shape[-1] != 3 or query.shape[:-2] != source.shape[:-2]:
+        raise ValueError(f"{name} takes {lead}M, 3] and {lead}N, 3] points, "
+                         f"got {tuple(query.shape)} and {tuple(source.shape)}")
     if query.dtype != torch.float32 or source.dtype != torch.float32:
         raise TypeError(f"{name} takes float32 points")
-    if source.shape[0] == 0:
+    if source.shape[-2] == 0:
         raise ValueError(f"{name} needs at least one source point")
     if source_mask is None:
-        source_mask = torch.ones(source.shape[0], dtype=torch.bool,
+        source_mask = torch.ones(source.shape[:-1], dtype=torch.bool,
                                  device=source.device)
-    if source_mask.shape != (source.shape[0],) or source_mask.dtype != torch.bool:
-        raise ValueError("source_mask must be bool[N]")
+    if source_mask.shape != source.shape[:-1] or source_mask.dtype != torch.bool:
+        raise ValueError(f"source_mask must be bool{lead}N]")
     if not (query.device == source.device == source_mask.device):
         raise ValueError(f"{name} inputs must share one device")
     return source_mask
@@ -151,25 +165,28 @@ def _check(name: str, query: torch.Tensor, source: torch.Tensor,
 def _launch(wrapper, query: torch.Tensor, source: torch.Tensor,
             source_mask: torch.Tensor, k: int
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel of ``wrapper`` (``nn1`` or ``knnk``) on the current
-    stream, raise if it is refused, and count the launch on the wrapper."""
+    """Launch the kernel of ``wrapper`` (``nn1``, ``nn1_batched`` or
+    ``knnk``) on the current stream, raise if it is refused, and count the
+    launch on the wrapper. Inputs carry a leading batch axis for
+    ``nn1_batched`` only."""
     name = wrapper.__name__
     if query.device.type != "cuda":
         raise ValueError(f"{name} runs on cpu or cuda, not {query.device}")
-    lib = load_library(name)
+    lib = load_library(_SOURCE_OF[name])
     q = query.contiguous()
     s = source.contiguous()
     m = source_mask.contiguous().view(torch.uint8)
-    M, N = q.shape[0], s.shape[0]
-    out_d = torch.empty((M, k), dtype=torch.float32, device=q.device)
-    out_i = torch.empty((M, k), dtype=torch.int32, device=q.device)
-    if M == 0:
+    lead = tuple(q.shape[:-2])              # () or (B,)
+    M, N = q.shape[-2], s.shape[-2]
+    out_d = torch.empty(lead + (M, k), dtype=torch.float32, device=q.device)
+    out_i = torch.empty(lead + (M, k), dtype=torch.int32, device=q.device)
+    if out_d.numel() == 0:
         return out_d, out_i
     args = [q.data_ptr(), s.data_ptr(), m.data_ptr(), out_d.data_ptr(),
-            out_i.data_ptr(), M, N] + ([k] if name == "knnk" else [])
+            out_i.data_ptr(), *lead, M, N] + ([k] if name == "knnk" else [])
     stream = torch.cuda.current_stream(q.device).cuda_stream
     with torch.cuda.device(q.device):
-        rc = getattr(lib, _ENTRY[name][0])(*args, stream)
+        rc = getattr(lib, f"tj_{name}")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
     wrapper.launches += 1
@@ -221,6 +238,37 @@ def nn1(query: torch.Tensor, source: torch.Tensor,
 
 
 nn1.launches = 0
+
+
+def nn1_batched_reference(query: torch.Tensor, source: torch.Tensor,
+                          source_mask: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of K1's batch mode: :func:`nn1_reference` per
+    batch entry, stacked."""
+    source_mask = _check("nn1_batched", query, source, source_mask, batch=True)
+    if query.shape[0] == 0:
+        z = query.new_zeros((0, query.shape[1], 1))
+        return z, z.to(torch.int32)
+    per = [nn1_reference(q, s, m)
+           for q, s, m in zip(query, source, source_mask)]
+    return torch.stack([d for d, _ in per]), torch.stack([i for _, i in per])
+
+
+def nn1_batched(query: torch.Tensor, source: torch.Tensor,
+                source_mask: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nearest valid source of the SAME batch entry per query row:
+    ``query [B, M, 3]``, ``source [B, N, 3]``, ``source_mask bool[B, N]`` →
+    ``(dist_sq f32[B, M, 1], idx i32[B, M, 1])``, indices within the entry.
+    One K1 launch on CUDA (the batch on the grid's second axis), plain on
+    the CPU; equal bit for bit to B :func:`nn1` calls."""
+    source_mask = _check("nn1_batched", query, source, source_mask, batch=True)
+    if query.device.type == "cpu":
+        return nn1_batched_reference(query, source, source_mask)
+    return _launch(nn1_batched, query, source, source_mask, 1)
+
+
+nn1_batched.launches = 0
 
 
 def _check_k(k: int) -> None:

@@ -12,10 +12,18 @@ Two entry points share everything after the scene features:
   features;
 
 then match against every bank view in one product (1-NN gate or 2-NN
-ratio) → Hough per view → view-grouped candidate cut (per part, when the
-bank's view axis concatenates several part banks) → two-tier ICP
-(kernel K1) → coverage-dominant ranking + coverage gate → composed pose +
-OBB (of the whole aligned view, or of its largest smooth cluster: K2 again).
+ratio) → Hough per view → view-grouped or peak-grouped candidate cut (per
+part, when the bank's view axis concatenates several part banks) → two-tier
+ICP (kernel K1) → [global hypothesis verification, ``recognize/hv.py``] →
+coverage-dominant ranking + coverage gate → composed pose + OBB (of the
+whole aligned view, or of its largest smooth cluster: K2 again).
+``good_instances`` lists every distinct accepted instance of a result.
+
+``detect_organized_batch`` runs B frames through the same chain at once:
+every stage carries the batch as a leading axis or folds it into an axis it
+already batches over (keypoints into SHOT's rows, frames into Hough's views
+and into the ICP's candidates, whose k=1 searches become one launch of K1's
+batch mode, each frame's candidates against that frame's scene).
 
 Shapes are fixed by the config, every branch is on configuration or on
 host facts about the bank (``ModelBank.has_model``), and indexing with a
@@ -31,13 +39,13 @@ from __future__ import annotations
 import dataclasses
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
 from tpu_joints_torch.config import DetectionConfig
 from tpu_joints_torch.core.cloud import SENTINEL, Cloud
-from tpu_joints_torch.core.ops import take, top_k
-from tpu_joints_torch.core.transforms import (compose, invert_rigid,
-                                              transform_points)
+from tpu_joints_torch.core.ops import top_k
+from tpu_joints_torch.core.transforms import compose, invert_rigid
 from tpu_joints_torch.features.lrf import board_lrf
 from tpu_joints_torch.features.normals import estimate_normals
 from tpu_joints_torch.features.shot import compute_shot
@@ -47,6 +55,7 @@ from tpu_joints_torch.neighbors.bruteforce import radius_neighbors
 from tpu_joints_torch.pipelines.ingest import (ingest_organized_blocks,
                                                ingest_organized_segmented)
 from tpu_joints_torch.recognize.hough import Instances, hough_group
+from tpu_joints_torch.recognize.hv import verify_hypotheses
 from tpu_joints_torch.recognize.icp import icp_multi, scene_coverage_multi
 from tpu_joints_torch.recognize.matching import Correspondences
 from tpu_joints_torch.recognize.obb import (OBB, oriented_bounding_box,
@@ -82,9 +91,22 @@ class DetectionResult(NamedTuple):
     cand_fitness: torch.Tensor   # [C]
     cand_views: torch.Tensor     # [C]
     cand_valid: torch.Tensor     # [C]
-    cand_verified: torch.Tensor  # [C] (all valid: HV is not ported)
+    cand_verified: torch.Tensor  # [C] HV mask (= cand_valid when HV is off)
     obb: OBB
     metrics: dict
+
+
+def _host(v) -> np.ndarray:
+    return v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+
+
+def metrics_to_json(metrics: dict) -> dict:
+    """DetectionResult.metrics → JSON-safe dict: scalars become floats,
+    small per-candidate vectors lists; the [C, 4, 4] candidate pose table
+    stays out (consumers get the GOOD subset through ``good_instances``)."""
+    return {k: (float(a) if a.ndim == 0 else a.tolist())
+            for k, a in ((k, _host(v)) for k, v in metrics.items())
+            if k != "cand_full_poses"}
 
 
 def prepare_scene(scene: Cloud, cfg: DetectionConfig,
@@ -104,6 +126,8 @@ def prepare_scene(scene: Cloud, cfg: DetectionConfig,
         raise NotImplementedError(
             f"descriptor {cfg.descriptor!r} is not ported yet (ROADMAP "
             "queue 1 item 12)")
+    if scene.xyz.ndim == 3:
+        return _prepare_scene_batch(scene, cfg, normals, curvature, key_select)
     if normals is None or curvature is None:
         if cfg.normal_radius > 0.0:
             raise NotImplementedError("radius normals are not ported yet "
@@ -168,6 +192,55 @@ def prepare_scene(scene: Cloud, cfg: DetectionConfig,
                          desc_valid=valid, rf=rf, rf_ok=rf_ok)
 
 
+def _prepare_scene_batch(scene: Cloud, cfg: DetectionConfig, normals,
+                         curvature, key_select) -> SceneFeatures:
+    """``prepare_scene`` for B ingested frames (scene [B, N, 3], normals
+    [B, N, 3] from the organized front end; no crop): the keypoint sampler
+    and the compaction run over the batch, the support gather is one
+    batched search, and SHOT and the voting frames, which work row by row,
+    take the B·Ms keypoints as rows over the B·N scene lanes."""
+    if (normals is None or curvature is None or cfg.remove_plane
+            or cfg.segment_scene or key_select is not None
+            or cfg.keypoints != "uniform"):
+        raise NotImplementedError(
+            "a batch of frames takes the organized front end's normals, "
+            "uniform keypoints and no crop chain")
+    B, N, _ = scene.xyz.shape
+    Ms = cfg.scene_key_capacity
+    keep = uniform_sample_mask(scene, cfg.scene_ss)
+    keys, kidx = compact_cloud(scene, keep, Ms)
+    lane0 = N * torch.arange(B, device=scene.xyz.device)[:, None]
+
+    def support(radius, k_max):
+        idx, within, _ = radius_neighbors(keys.xyz, scene.xyz, radius, k_max,
+                                          source_mask=scene.mask)
+        return ((idx.long() + lane0[:, :, None]).reshape(B * Ms, k_max),
+                within.reshape(B * Ms, k_max))
+
+    rows = Cloud(*(t.reshape(B * Ms, *t.shape[2:]) for t in keys))
+    flat = Cloud(*(t.reshape(B * N, *t.shape[2:]) for t in scene))
+    flat_normals = normals.reshape(B * N, 3)
+    shared = None
+    if (cfg.rf_frames == "board" and cfg.rf_rad == cfg.descr_rad
+            and cfg.rf_k_max == cfg.k_max):
+        shared = support(cfg.descr_rad, cfg.k_max)
+    desc, rf, valid = compute_shot(
+        rows, flat, flat_normals, radius=cfg.descr_rad, k_max=cfg.k_max,
+        neighbors=shared or support(cfg.descr_rad, cfg.k_max))
+    rf_ok = valid
+    if cfg.rf_frames == "board":
+        nidx, nwithin = shared or support(cfg.rf_rad, cfg.rf_k_max)
+        rf, rf_ok = board_lrf(
+            rows.xyz, flat_normals[(kidx + lane0).reshape(-1)], flat.xyz[nidx],
+            flat_normals[nidx], nwithin & rows.mask[:, None], cfg.rf_rad)
+    elif cfg.rf_frames != "shot":
+        raise ValueError(f"unknown rf_frames {cfg.rf_frames!r}")
+    return SceneFeatures(
+        cloud=scene, normals=normals, keys=keys, desc=desc.reshape(B, Ms, -1),
+        desc_valid=valid.reshape(B, Ms), rf=rf.reshape(B, Ms, 3, 3),
+        rf_ok=rf_ok.reshape(B, Ms))
+
+
 def _model_at_capacity(bank: ModelBank, n: int):
     """The full CAD cloud stride-subsampled/padded to exactly ``n`` lanes."""
     Nm = bank.model_xyz.shape[0]
@@ -187,9 +260,14 @@ def match_bank(scene_desc: torch.Tensor, scene_valid: torch.Tensor,
     """Nearest bank keypoint per scene keypoint and view, from one
     [Ms, V·Mk] descriptor-distance product, gated by ``cfg.match_mode``
     ("nn": absolute threshold; "ratio": d1/d2 <= τ over the two nearest,
-    in ``lax.top_k``'s order); fields are [V, Ms]."""
+    in ``lax.top_k``'s order); fields are [V, Ms]. B scenes
+    (``scene_desc [B, Ms, D]``) share the one product, [B·Ms, V·Mk]; the
+    fields are then [B·V, Ms], the views of frame b at [b·V, (b+1)·V)."""
     V, Mk, D = bank_desc.shape
     flat = bank_desc.reshape(V * Mk, D)
+    Ms = scene_desc.shape[-2]
+    scene_desc = scene_desc.reshape(-1, D)
+    scene_valid = scene_valid.reshape(-1)
     s2 = (scene_desc * scene_desc).sum(-1, keepdim=True)
     b2 = (flat * flat).sum(-1)
     d = s2 + b2[None, :] - 2.0 * (scene_desc @ flat.T)
@@ -207,16 +285,26 @@ def match_bank(scene_desc: torch.Tensor, scene_valid: torch.Tensor,
               & (d2 < 1e30))
     else:
         raise ValueError(f"unknown match mode {cfg.match_mode!r}")
-    return Correspondences(model_idx=idx.T, valid=ok.T, dist_sq=d1.T)
+
+    def per_view(t):                  # [B·Ms, V] → [B·V, Ms]
+        return t.reshape(-1, Ms, V).transpose(1, 2).reshape(-1, Ms)
+
+    return Correspondences(model_idx=per_view(idx), valid=per_view(ok),
+                           dist_sq=per_view(d1))
 
 
 def _group_all_views(feats: SceneFeatures, bank: ModelBank,
                      corrs: Correspondences, cfg: DetectionConfig) -> Instances:
     if cfg.algorithm != "hough":
         raise NotImplementedError(f"algorithm {cfg.algorithm!r} is not ported yet")
+    key_xyz, rf, key_valid = bank.key_xyz, bank.rf, bank.key_valid
+    if feats.keys.xyz.ndim == 3:      # B frames: the bank's views B times
+        B = feats.keys.xyz.shape[0]
+        key_xyz, rf, key_valid = (t.repeat(B, *[1] * (t.ndim - 1))
+                                  for t in (key_xyz, rf, key_valid))
     return hough_group(
-        feats.keys.xyz, feats.rf, feats.rf_ok, bank.key_xyz, bank.rf,
-        bank.key_valid, bank.key_valid, corrs,
+        feats.keys.xyz, feats.rf, feats.rf_ok, key_xyz, rf, key_valid,
+        key_valid, corrs,
         bin_size=cfg.cg_size, threshold=cfg.cg_thresh,
         max_instances=cfg.max_instances_per_view,
         use_distance_weight=cfg.use_distance_weight,
@@ -232,17 +320,24 @@ def detect_with_features(feats: SceneFeatures, bank: ModelBank,
     corrs = match_bank(feats.desc, feats.desc_valid, bank.desc,
                        bank.key_valid, cfg)
     inst = _group_all_views(feats, bank, corrs, cfg)
-    return refine_instances(feats, bank, inst, corrs.count(), cfg,
-                            n_parts=n_parts)
+    n_corr = corrs.valid.reshape(-1, bank.n_views * corrs.valid.shape[1]).sum(
+        1, dtype=torch.int32)
+    if feats.cloud.xyz.ndim == 2:
+        n_corr = n_corr[0]
+    return refine_instances(feats, bank, inst, n_corr, cfg, n_parts=n_parts)
 
 
 def _candidate_cut(inst: Instances, cfg: DetectionConfig, n_parts: int):
     """Top ``max_candidates`` (view, peak) slots per part: (top_flat
     int64[C] into the flattened [V·P] instance table, top_votes [C]), part
-    p's candidates at [p·Cp, (p+1)·Cp). View-grouped
-    (``cfg.view_grouped_candidates``): the strongest bin picks the view and
-    all of that view's bins enter; else the plain top-k over the part's
-    slots."""
+    p's candidates at [p·Cp, (p+1)·Cp). Peak-grouped
+    (``cfg.peak_grouped_candidates``, with the rotation-mode split): adjacent
+    slot pairs are one translation peak's two rotation modes; all (view,
+    peak) pairs are ranked together and both modes of the top Cp/2 enter.
+    View-grouped (``cfg.view_grouped_candidates``): the strongest bin picks
+    the view and all of that view's bins enter; else the plain top-k over
+    the part's slots. A batch of frames is cut like parts: ``n_parts``
+    counts every (frame, part) group of the folded view axis."""
     dev = inst.votes.device
     V, P = inst.votes.shape
     if V % n_parts:
@@ -251,7 +346,14 @@ def _candidate_cut(inst: Instances, cfg: DetectionConfig, n_parts: int):
     Vp = V // n_parts
     Cp = min(cfg.max_candidates, Vp * P)
     votes = torch.where(inst.valid, inst.votes, -1.0).reshape(n_parts, Vp * P)
-    if cfg.view_grouped_candidates and P > 1 and Cp % P == 0:
+    if (cfg.peak_grouped_candidates and cfg.split_rotation_modes
+            and P % 2 == 0 and Cp % 2 == 0):
+        strength = votes.reshape(n_parts, Vp * P // 2, 2).amax(2)
+        _, top_pairs = top_k(strength, Cp // 2)             # [n_parts, Kp]
+        top_local = (top_pairs[:, :, None] * 2
+                     + torch.arange(2, device=dev)).reshape(n_parts, Cp)
+        top_votes = votes.gather(1, top_local)
+    elif cfg.view_grouped_candidates and P > 1 and Cp % P == 0:
         strength = votes.reshape(n_parts, Vp, P).amax(2)
         _, top_views = top_k(strength, Cp // P)             # [n_parts, Kv]
         top_local = (top_views[:, :, None] * P
@@ -263,29 +365,47 @@ def _candidate_cut(inst: Instances, cfg: DetectionConfig, n_parts: int):
     return top_flat.reshape(-1), top_votes.reshape(-1)
 
 
+def _registered_views(bank: ModelBank, views: torch.Tensor,
+                      poses: torch.Tensor):
+    """The bank views ``views`` [C] moved by ``poses`` [C, 4, 4]: (xyz
+    [C, Nv, 3], mask [C, Nv])."""
+    xyz = torch.einsum("cij,cnj->cni", poses[:, :3, :3], bank.view_xyz[views]) \
+        + poses[:, None, :3, 3]
+    return xyz, bank.view_mask[views]
+
+
 def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
                      n_corr_total: torch.Tensor, cfg: DetectionConfig,
                      n_parts: int = 1) -> DetectionResult:
-    """Candidate cut → (two-tier) ICP → full-CAD ranking with scene
-    coverage → winner, acceptance gates, OBB.
+    """Candidate cut → (two-tier) ICP → [hypothesis verification] →
+    full-CAD ranking with scene coverage → winner, acceptance gates, OBB.
 
     ``n_parts > 1``: the bank's view axis is a concatenation of that many
     part banks sharing one full CAD (``pipelines/multi.py``); the cut takes
     ``max_candidates`` per part, so a vote-rich part cannot crowd the other
     out, and every later stage runs on the pooled ``n_parts ·
     max_candidates`` field unchanged. The winner's part is ``view_idx //
-    (V / n_parts)``."""
-    if cfg.hv_enabled or cfg.peak_grouped_candidates:
-        raise NotImplementedError("HV and the peak-grouped cut are not "
-                                  "ported yet (ROADMAP queue 1 item 13)")
+    (V / n_parts)``.
+
+    B frames (``feats`` with a leading batch axis, ``inst`` over B·V views
+    in frame order): the frames' candidate fields are cut like parts and
+    folded into one candidate axis of B·C, frame b's at [b·C, (b+1)·C), so
+    each ICP iteration is one launch of K1's batch mode and each coverage
+    one folded K1 launch; ranking, selection and gates run per frame, and
+    every leaf of the result gains a leading B."""
     dev = inst.votes.device
-    V, P = inst.votes.shape
-    top_flat, top_votes = _candidate_cut(inst, cfg, n_parts)
-    C = top_flat.shape[0]
-    cand_views = top_flat // P
+    batched = feats.cloud.xyz.ndim == 3
+    B = feats.cloud.xyz.shape[0] if batched else 1
+    Vt, P = inst.votes.shape
+    V = Vt // B                                  # the bank's views
+    top_flat, top_votes = _candidate_cut(inst, cfg, B * n_parts)
+    Ct = top_flat.shape[0]                       # candidates of all frames
+    C = Ct // B
+    frame0 = C * torch.arange(B, device=dev)[:, None]
+    cand_views = (top_flat // P) % V
     cand_valid = top_votes > 0.0
-    cand_init = inst.poses.reshape(V * P, 4, 4)[top_flat]
-    cand_ncorrs = inst.n_corrs.reshape(V * P)[top_flat]
+    cand_init = inst.poses.reshape(Vt * P, 4, 4)[top_flat]
+    cand_ncorrs = inst.n_corrs.reshape(Vt * P)[top_flat]
 
     has_model = bank.has_model
     Ni = bank.icp_xyz.shape[1]
@@ -314,8 +434,25 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         target_normals=feats.normals if cfg.icp_point_to_plane else None,
         with_fitness=not (two_tier and cfg.tier1_skip_view_fitness), **icp_kw)
     cand_fitness = torch.where(cand_valid, cand_fitness, _BIG)
-    cand_verified = cand_valid
-    effective_fitness = cand_fitness
+
+    if cfg.hv_enabled:
+        inst_xyz, inst_mask = _registered_views(bank, cand_views, cand_poses)
+        hv_kw = dict(inlier_threshold=cfg.hv_inlier_threshold,
+                     outlier_regularizer=cfg.hv_regularizer,
+                     occlusion_threshold=cfg.hv_occlusion_threshold)
+        if batched:      # one joint verification per frame
+            cand_verified = torch.cat([verify_hypotheses(
+                inst_xyz[b * C:(b + 1) * C], inst_mask[b * C:(b + 1) * C],
+                cand_valid[b * C:(b + 1) * C],
+                Cloud(*(t[b] for t in feats.cloud)), **hv_kw)
+                for b in range(B)])
+        else:
+            cand_verified = verify_hypotheses(inst_xyz, inst_mask, cand_valid,
+                                              feats.cloud, **hv_kw)
+        effective_fitness = torch.where(cand_verified, cand_fitness, _BIG)
+    else:
+        cand_verified = cand_valid
+        effective_fitness = cand_fitness
 
     full_cands = compose(cand_poses, bank.poses[cand_views])
     coverage = unexplained = None
@@ -325,7 +462,7 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         rows = (Ni + stride - 1) // stride
         m_xyz, m_mask = _model_at_capacity(bank, rows)
         polished, model_fit = icp_multi(
-            m_xyz.expand(C, rows, 3), m_mask.expand(C, rows), feats.cloud,
+            m_xyz.expand(Ct, rows, 3), m_mask.expand(Ct, rows), feats.cloud,
             full_cands, iterations=t1_polish_iters,
             point_to_plane=cfg.final_point_to_plane,
             target_normals=feats.normals, **icp_kw)
@@ -340,11 +477,13 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         ranked = torch.where(cand_valid & cand_verified, rank_metric, _BIG)
         if two_tier:
             R = cfg.refine_top
-            _, top_r = top_k(-ranked, R)
+            _, top_r = top_k(-ranked.reshape(B, C), R)       # per frame
+            top_r = (top_r + frame0).reshape(B * R)
             m2_xyz, m2_mask = _model_at_capacity(bank, Ni)
             polished2, fit2 = icp_multi(
-                m2_xyz.expand(R, Ni, 3), m2_mask.expand(R, Ni), feats.cloud,
-                polished[top_r], iterations=cfg.final_icp_iterations,
+                m2_xyz.expand(B * R, Ni, 3), m2_mask.expand(B * R, Ni),
+                feats.cloud, polished[top_r],
+                iterations=cfg.final_icp_iterations,
                 point_to_plane=cfg.final_point_to_plane,
                 target_normals=feats.normals, **icp_kw)
             rank2 = fit2
@@ -361,7 +500,7 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
             model_fit = model_fit.index_copy(0, top_r, fit2)
             # only tier-2 survivors can win, in every selection mode
             ranked = torch.full_like(ranked, _BIG).index_copy(0, top_r, rank2)
-            in_top = torch.zeros(C, dtype=torch.bool, device=dev).index_fill(
+            in_top = torch.zeros(Ct, dtype=torch.bool, device=dev).index_fill(
                 0, top_r, True)
             effective_fitness = torch.where(in_top, effective_fitness, _BIG)
         if cfg.select_by_model_fitness:
@@ -369,27 +508,28 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
     else:
         polished, model_fit = full_cands, cand_fitness
 
-    best = torch.argmin(effective_fitness)
-    view_idx = take(cand_views, best)
-    view_pose = take(cand_poses, best)
-    fitness = take(cand_fitness, best)
+    # the winner of every frame: the first minimum of its candidates
+    best = effective_fitness.reshape(B, C).argmin(1) + frame0[:, 0]     # [B]
+    view_idx = cand_views[best]
+    view_pose = cand_poses[best]
+    fitness = cand_fitness[best]
     if cfg.final_icp_iterations > 0 and has_model:
-        full_pose = take(polished, best)
-        full_fitness = take(model_fit, best)
+        full_pose = polished[best]
+        full_fitness = model_fit[best]
         accepted = full_fitness < cfg.final_accept_fitness
     elif cfg.final_icp_iterations > 0:
-        full_pose = take(full_cands, best)
+        full_pose = full_cands[best]
         full_fitness = fitness
         accepted = fitness < cfg.accept_fitness
     else:
-        full_pose = take(full_cands, best)
-        full_fitness = (take(model_fit, best)
+        full_pose = full_cands[best]
+        full_fitness = (model_fit[best]
                         if has_model and cfg.select_by_model_fitness else fitness)
         accepted = fitness < cfg.accept_fitness
     if two_tier:
         # re-derive the view→scene pose from the tier-2 polished CAD pose
-        view_pose = compose(full_pose, invert_rigid(take(bank.poses, view_idx)))
-    accepted = accepted & take(cand_valid, best) & take(cand_verified, best)
+        view_pose = compose(full_pose, invert_rigid(bank.poses[view_idx]))
+    accepted = accepted & cand_valid[best] & cand_verified[best]
     if cfg.coverage_accept > 0.0 and has_model:
         if unexplained is None:
             raise ValueError(
@@ -397,44 +537,112 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
                 "ranking stage (select_by_model_fitness=True or "
                 "final_icp_iterations > 0)")
         # the winner must EXPLAIN the scene: few points far from the model
-        accepted = accepted & (take(unexplained, best) < cfg.coverage_accept)
+        accepted = accepted & (unexplained[best] < cfg.coverage_accept)
 
-    view_xyz = take(bank.view_xyz, view_idx)
-    aligned = Cloud(xyz=transform_points(view_xyz, view_pose),
-                    mask=take(bank.view_mask, view_idx),
-                    rgb=torch.zeros_like(view_xyz))
+    view_xyz = bank.view_xyz[view_idx]                       # [B, Nv, 3]
+    aligned = Cloud(
+        xyz=torch.einsum("bnj,bij->bni", view_xyz, view_pose[:, :3, :3])
+        + view_pose[:, None, :3, 3],
+        mask=bank.view_mask[view_idx], rgb=torch.zeros_like(view_xyz))
     if cfg.obb_largest_cluster:
-        # the reference's OBB: box the aligned view's dominant smooth cluster
-        box = oriented_bounding_box_clustered(
-            aligned, min_cluster_size=cfg.rg_min_cluster)
+        # the reference's OBB: box the aligned view's dominant smooth
+        # cluster (its region growing reads the host: frame by frame)
+        boxes = [oriented_bounding_box_clustered(
+            Cloud(*(t[b] for t in aligned)),
+            min_cluster_size=cfg.rg_min_cluster) for b in range(B)]
+        box = OBB(*(torch.stack(f) for f in zip(*boxes)))
     else:
         box = oriented_bounding_box(aligned)
 
+    def per_frame(t):                 # [B·C, ...] → [B, C, ...]
+        return t.reshape(B, C, *t.shape[1:])
+
     metrics = {
-        "scene_points": feats.cloud.count(),
-        "scene_keypoints": feats.keys.count(),
-        "valid_descriptors": feats.desc_valid.sum(dtype=torch.int32),
-        "correspondences": n_corr_total,
-        "instances": inst.valid.sum(dtype=torch.int32),
-        "best_votes": top_votes.amax(),
+        "scene_points": feats.cloud.mask.reshape(B, -1).sum(1, dtype=torch.int32),
+        "scene_keypoints": feats.keys.mask.reshape(B, -1).sum(
+            1, dtype=torch.int32),
+        "valid_descriptors": feats.desc_valid.reshape(B, -1).sum(
+            1, dtype=torch.int32),
+        "correspondences": n_corr_total.reshape(B),
+        "instances": inst.valid.reshape(B, -1).sum(1, dtype=torch.int32),
+        "best_votes": per_frame(top_votes).amax(1),
     }
     if coverage is not None:
-        metrics["best_coverage"] = take(coverage, best)
-        metrics["cand_coverage"] = coverage
-        metrics["best_unexplained"] = take(unexplained, best)
-        metrics["cand_unexplained"] = unexplained
-    metrics["cand_full_poses"] = polished if has_model else full_cands
-    metrics["cand_full_fitness"] = model_fit if has_model else cand_fitness
-    metrics["has_model"] = has_model
-    metrics["cand_tier2"] = (in_top if in_top is not None
-                             else torch.ones(C, dtype=torch.bool, device=dev))
-    return DetectionResult(
+        metrics["best_coverage"] = coverage[best]
+        metrics["cand_coverage"] = per_frame(coverage)
+        metrics["best_unexplained"] = unexplained[best]
+        metrics["cand_unexplained"] = per_frame(unexplained)
+    metrics["cand_full_poses"] = per_frame(polished if has_model else full_cands)
+    metrics["cand_full_fitness"] = per_frame(model_fit if has_model
+                                             else cand_fitness)
+    metrics["cand_tier2"] = per_frame(
+        in_top if in_top is not None
+        else torch.ones(Ct, dtype=torch.bool, device=dev))
+    res = DetectionResult(
         full_pose=full_pose, view_pose=view_pose, fitness=fitness,
         full_fitness=full_fitness, accepted=accepted, view_idx=view_idx,
-        n_corrs=take(cand_ncorrs, best), cand_poses=cand_poses,
-        cand_fitness=cand_fitness, cand_views=cand_views,
-        cand_valid=cand_valid, cand_verified=cand_verified, obb=box,
-        metrics=metrics)
+        n_corrs=cand_ncorrs[best], cand_poses=per_frame(cand_poses),
+        cand_fitness=per_frame(cand_fitness), cand_views=per_frame(cand_views),
+        cand_valid=per_frame(cand_valid),
+        cand_verified=per_frame(cand_verified), obb=box, metrics=metrics)
+    if not batched:                   # one frame: no leading axis
+        res = res._replace(
+            **{f: getattr(res, f)[0] for f in res._fields
+               if f not in ("obb", "metrics")},
+            obb=OBB(*(t[0] for t in box)),
+            metrics={k: v[0] for k, v in metrics.items()})
+    res.metrics["has_model"] = has_model
+    return res
+
+
+def good_instances(res: DetectionResult, cfg: DetectionConfig,
+                   min_separation: float = 0.05):
+    """All distinct GOOD instances of a (one-frame) detection, on the host:
+    every candidate that is valid, verified, acceptance-grade (a tier-2
+    survivor under two-tier refinement) and passes the gates the winner is
+    held to (the fitness gate and, where the coverage was computed, the
+    unexplained-fraction gate), taken best first in the winner's rank order
+    (coverage + 0.1·fitness) and deduplicated by location: candidates whose
+    composed translations lie within ``min_separation`` metres are one
+    instance.
+
+    Returns a best-first list of dicts with keys ``pose`` (CAD → scene,
+    [4, 4] numpy), ``view_idx``, ``fitness``, ``candidate``. Results without
+    a candidate pose table (the multi-part ones) give ``[]``."""
+    if "cand_full_poses" not in res.metrics:
+        return []
+    poses = _host(res.metrics["cand_full_poses"])
+    has_model = bool(_host(res.metrics.get("has_model", True)))
+    # the winner's acceptance quantity exactly: full-CAD fitness only when a
+    # final polish ran on a bank that stores the CAD, else the view fitness
+    if cfg.final_icp_iterations > 0 and has_model:
+        fitness = _host(res.metrics["cand_full_fitness"])
+        gate = cfg.final_accept_fitness
+    else:
+        fitness = _host(res.cand_fitness)
+        gate = cfg.accept_fitness
+    ok = _host(res.cand_valid) & _host(res.cand_verified) & (fitness < gate)
+    if "cand_tier2" in res.metrics:
+        ok &= _host(res.metrics["cand_tier2"])
+    if (cfg.coverage_accept > 0.0 and has_model
+            and "cand_unexplained" in res.metrics):
+        ok &= _host(res.metrics["cand_unexplained"]) < cfg.coverage_accept
+    views = _host(res.cand_views)
+    if "cand_coverage" in res.metrics:
+        order_metric = _host(res.metrics["cand_coverage"]) + 0.1 * fitness
+    else:
+        order_metric = fitness
+    kept = []
+    for i in np.argsort(order_metric):
+        if not ok[i]:
+            continue
+        T = poses[i]
+        if any(np.linalg.norm(T[:3, 3] - k["pose"][:3, 3]) < min_separation
+               for k in kept):
+            continue
+        kept.append({"pose": T, "view_idx": int(views[i]),
+                     "fitness": float(fitness[i]), "candidate": int(i)})
+    return kept
 
 
 def _strip_crop(cfg: DetectionConfig) -> DetectionConfig:
@@ -521,3 +729,41 @@ def detect_organized(
     feats, n_sel = organized_features(xyz_img, valid, cfg, block, half_window,
                                       crop_lo, crop_hi, viewpoint)
     return detect_with_features(feats, bank, _strip_crop(cfg)), n_sel
+
+
+def detect_organized_batch(
+    xyz_imgs: torch.Tensor,
+    valids: torch.Tensor,
+    bank: ModelBank,
+    cfg: DetectionConfig = DetectionConfig(),
+    block: int = 4,
+    half_window: int = 5,
+    crop_lo: Optional[torch.Tensor] = None,
+    crop_hi: Optional[torch.Tensor] = None,
+    viewpoint: Optional[torch.Tensor] = None,
+):
+    """B raw organized frames float32[B, H, W, 3] + valids bool[B, H, W] →
+    B poses in one pass: the steady state of a server that drains its queue
+    into a batch. Every stage takes the batch (see the module docstring);
+    only the final bounding box is fitted frame by frame. Each frame's
+    result equals its own ``detect_organized`` run up to the rounding of the
+    batched products.
+
+    The crop chain (``cfg.segment_scene`` / ``cfg.remove_plane``) is not
+    batched: its lattice region growing reads the host once per frame.
+
+    Returns ``(DetectionResult, n_selected[B])`` with a leading batch axis
+    on every leaf.
+    """
+    if xyz_imgs.ndim != 4 or valids.ndim != 3:
+        raise ValueError(f"expected [B, H, W, 3] frames and [B, H, W] valids, "
+                         f"got {tuple(xyz_imgs.shape)} and {tuple(valids.shape)}")
+    if cfg.segment_scene or cfg.remove_plane:
+        raise NotImplementedError(
+            "detect_organized_batch does not run the crop chain; call "
+            "detect_organized per frame for a segmented configuration")
+    _check_devices(bank.device, xyz_imgs, valids, crop_lo, crop_hi, viewpoint)
+    cfg = _tier_cfg(bank, cfg)
+    feats, n_sel = organized_features(xyz_imgs, valids, cfg, block,
+                                      half_window, crop_lo, crop_hi, viewpoint)
+    return detect_with_features(feats, bank, cfg), n_sel

@@ -6,6 +6,8 @@ One point per ``block``×``block`` pixel tile — the valid pixel nearest the
 tile mean, ties to the larger pixel index — with normals and curvature from
 the shared box-filtered moment maps. Tile reductions are reshape-and-reduce
 over the tiles, summing each tile's pixels in row-major order.
+``ingest_organized_blocks`` also takes a batch of frames [B, H, W, 3]: every
+step works on the last two (pixel or tile) axes, so the batch rides along.
 """
 from __future__ import annotations
 
@@ -16,39 +18,40 @@ import torch
 from tpu_joints_torch.core.cloud import SENTINEL, Cloud
 from tpu_joints_torch.features.eigen3 import eigh3x3
 from tpu_joints_torch.features.organized import _cov_from_moments, organized_moments
-from tpu_joints_torch.filters.filters import compact_indices
+from tpu_joints_torch.filters.filters import compact_indices, gather_lanes
 from tpu_joints_torch.segment.organized import region_growing_lattice
 from tpu_joints_torch.segment.region_growing import cluster_curvature_filter
 from tpu_joints_torch.segment.sac import dominant_plane
 
 
 def _tiles(a: torch.Tensor, block: int) -> torch.Tensor:
-    H, W = a.shape
-    return a.reshape(H // block, block, W // block, block)
+    H, W = a.shape[-2:]
+    return a.reshape(*a.shape[:-2], H // block, block, W // block, block)
 
 
 def _tile_sum(a: torch.Tensor, block: int) -> torch.Tensor:
     t = _tiles(a, block)
-    out = t[:, 0, :, 0]
+    out = t[..., :, 0, :, 0]
     for i in range(block):
         for j in range(block):
             if i or j:
-                out = out + t[:, i, :, j]
+                out = out + t[..., :, i, :, j]
     return out
 
 
 def _up(a: torch.Tensor, block: int) -> torch.Tensor:
-    return a.repeat_interleave(block, 0).repeat_interleave(block, 1)
+    return a.repeat_interleave(block, -2).repeat_interleave(block, -1)
 
 
 def _tile_select(xyz_img, valid, block, crop_lo, crop_hi):
-    """Crop + one-winner-per-tile selection on [H, W] planes.
+    """Crop + one-winner-per-tile selection on [..., H, W] planes.
 
     Returns (x, y, z, mask) full-resolution planes, the winning pixel per
-    tile ``pix`` int64[Hb·Wb], ``got`` bool[Hb·Wb] (tile holds a valid
-    point) and the tile means (mx, my, mz).
+    tile ``pix`` int64[..., Hb·Wb], ``got`` bool[..., Hb·Wb] (tile holds a
+    valid point) and the tile means (mx, my, mz).
     """
-    H, W, _ = xyz_img.shape
+    H, W = xyz_img.shape[-3:-1]
+    lead = xyz_img.shape[:-3]
     if H % block or W % block:
         raise ValueError(f"frame {H}x{W} does not tile by {block}")
     mask = valid
@@ -73,14 +76,14 @@ def _tile_select(xyz_img, valid, block, crop_lo, crop_hi):
     d2 = ((x - _up(mx, block)) ** 2 + (y - _up(my, block)) ** 2
           + (z - _up(mz, block)) ** 2)
     d2 = torch.where(mask, d2, 3e38)
-    tmin = _tiles(d2, block).amin(dim=(1, 3))
+    tmin = _tiles(d2, block).amin(dim=(-3, -1))
     # the UniformSampling winner: the valid pixel nearest the tile mean,
     # ties broken toward the larger flat pixel index
     winner = (d2 <= _up(tmin, block)) & mask
     pixidx = torch.arange(H * W, device=xyz_img.device).reshape(H, W)
-    best_pix = _tiles(torch.where(winner, pixidx, -1), block).amax(dim=(1, 3))
-    got = (cnt > 0).reshape(-1)
-    pix = torch.clamp_min(best_pix.reshape(-1), 0)
+    best_pix = _tiles(torch.where(winner, pixidx, -1), block).amax(dim=(-3, -1))
+    got = (cnt > 0).reshape(*lead, -1)
+    pix = torch.clamp_min(best_pix.reshape(*lead, -1), 0)
     return x, y, z, mask, pix, got, (mx, my, mz)
 
 
@@ -88,25 +91,27 @@ def _moment_normals(x, y, z, mask, pix, got, half_window, viewpoint):
     """Positions, viewpoint-oriented normals and curvature λ0/Σλ at the
     ``pix`` pixels; ``ok`` = ``got`` minus pixels whose window collapsed on
     a depth edge or holds < 5 points."""
-    H, W = mask.shape
+    H, W = mask.shape[-2:]
     S_img, r_px = organized_moments(torch.stack([x, y, z], -1), mask,
                                     half_window)
-    rows = torch.clamp(pix // W, 0, H - 1)
-    cols = pix % W
-    S = S_img[:, rows, cols]
-    cov, _, n_support = _cov_from_moments(S)
-    xyz = torch.stack([x[rows, cols], y[rows, cols], z[rows, cols]], -1)
+    pix = torch.clamp(pix, 0, H * W - 1)
+
+    def at(plane):          # [..., H, W] at the flat pixel indices [..., T]
+        return plane.flatten(-2).gather(-1, pix.expand(*plane.shape[:-2], -1))
+
+    cov, _, n_support = _cov_from_moments(at(S_img))
+    xyz = torch.stack([at(x), at(y), at(z)], -1)
     vals, vecs = eigh3x3(cov)
     normals = vecs[..., :, 2]
-    to_vp = viewpoint[None, :] - xyz
+    to_vp = viewpoint - xyz
     normals = torch.where((normals * to_vp).sum(-1, keepdim=True) < 0,
                           -normals, normals)
     lam = torch.clamp_min(vals, 0.0)
-    tot = lam.sum(1)
+    tot = lam.sum(-1)
     curvature = torch.where(tot > 1e-20,
-                            lam[:, 2] / torch.clamp_min(tot, 1e-20), 0.0)
-    ok = got & (n_support >= 5.0) & (r_px[rows, cols] >= 1)
-    normals = torch.where(ok[:, None], normals, 0.0)
+                            lam[..., 2] / torch.clamp_min(tot, 1e-20), 0.0)
+    ok = got & (n_support >= 5.0) & (at(r_px) >= 1)
+    normals = torch.where(ok[..., None], normals, 0.0)
     curvature = torch.where(ok, curvature, 0.0)
     return xyz, normals, curvature, ok
 
@@ -122,20 +127,21 @@ def ingest_organized_blocks(
     viewpoint: Optional[torch.Tensor] = None,
 ) -> Tuple[Cloud, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Organized [H, W, 3] frame → (scene Cloud, normals, curvature,
-    n_selected — occupied tiles before the capacity cut)."""
+    n_selected — occupied tiles before the capacity cut); a batch of frames
+    [B, H, W, 3] with valid [B, H, W] gives every result a leading B."""
     if viewpoint is None:
         viewpoint = torch.zeros(3, dtype=torch.float32, device=xyz_img.device)
-    H, W, _ = xyz_img.shape
+    H, W = xyz_img.shape[-3:-1]
     x, y, z, mask, pix, got, _ = _tile_select(xyz_img, valid, block,
                                               crop_lo, crop_hi)
-    n_selected = got.sum(dtype=torch.int32)
+    n_selected = got.sum(-1, dtype=torch.int32)
     if capacity is not None and capacity < (H // block) * (W // block):
         idx, keep = compact_indices(got, capacity)
-        pix = pix[idx]
+        pix = gather_lanes(pix, idx)
         got = keep
     xyz, normals, curvature, got = _moment_normals(
         x, y, z, mask, pix, got, half_window, viewpoint)
-    scene = Cloud(xyz=torch.where(got[:, None], xyz, SENTINEL), mask=got,
+    scene = Cloud(xyz=torch.where(got[..., None], xyz, SENTINEL), mask=got,
                   rgb=torch.zeros_like(xyz))
     return scene, normals, curvature, n_selected
 

@@ -29,8 +29,9 @@ from tpu_joints_torch.core.transforms import compose
 from tpu_joints_torch.modelbank.bank import _ARRAYS, ModelBank
 from tpu_joints_torch.pipelines.detect import (
     DetectionResult, SceneFeatures, _check_devices, _group_all_views,
-    _model_at_capacity, _strip_crop, _tier_cfg, detect_with_features,
-    match_bank, organized_features, prepare_scene)
+    _model_at_capacity, _registered_views, _strip_crop, _tier_cfg,
+    detect_with_features, match_bank, organized_features, prepare_scene)
+from tpu_joints_torch.recognize.hv import verify_hypotheses
 from tpu_joints_torch.recognize.icp import _move, icp_multi
 from tpu_joints_torch.recognize.obb import OBB, oriented_bounding_box
 
@@ -134,11 +135,9 @@ def _detect_parts_device(feats: SceneFeatures, cat: ModelBank,
                          part_models: torch.Tensor,
                          part_models_mask: torch.Tensor, cfg: DetectionConfig,
                          n_parts: int) -> dict:
-    """Match → group → per-part top-C → one batched ICP → per-part full-CAD
-    polish → per-part winners; every value has a leading part axis."""
-    if cfg.hv_enabled:
-        raise NotImplementedError("HV is not ported yet (ROADMAP queue 1 "
-                                  "item 13)")
+    """Match → group → per-part top-C → one batched ICP → [pooled
+    hypothesis verification] → per-part full-CAD polish → per-part winners;
+    every value has a leading part axis."""
     dev = cat.device
     P = n_parts
     Vt = cat.desc.shape[0]          # P·V concatenated views
@@ -169,7 +168,17 @@ def _detect_parts_device(feats: SceneFeatures, cat: ModelBank,
         target_normals=feats.normals if cfg.icp_point_to_plane else None,
         **icp_kw)
     cand_fitness = torch.where(cand_valid, cand_fitness, _BIG)
-    cand_verified = cand_valid
+    if cfg.hv_enabled:
+        # one verification over the POOLED P·C candidates, whichever part
+        # produced them (P·C > 16 takes the greedy search)
+        inst_xyz, inst_mask = _registered_views(cat, gv, cand_poses)
+        cand_verified = verify_hypotheses(
+            inst_xyz, inst_mask, cand_valid, feats.cloud,
+            inlier_threshold=cfg.hv_inlier_threshold,
+            outlier_regularizer=cfg.hv_regularizer,
+            occlusion_threshold=cfg.hv_occlusion_threshold)
+    else:
+        cand_verified = cand_valid
 
     # full-CAD ranking/polish against each candidate's OWN part model
     full_cands = compose(cand_poses, cat.poses[gv])

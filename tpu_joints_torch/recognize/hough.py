@@ -7,6 +7,8 @@ deterministic in-order segment sum (``core.ops.scatter_add``); peaks come
 from 3³ non-max suppression and ``lax.top_k``'s order (stable sort). With
 ``split_rotation_modes`` each peak emits its two rotation modes (consensus
 anchors, ~45° cones), interleaved as [peak0·mode0, peak0·mode1, ...].
+A batch of B scenes folds into the view axis: B·V "views" in frame order,
+view v grouped against scene v // V.
 """
 from __future__ import annotations
 
@@ -94,17 +96,28 @@ def hough_group(
 
     Scene arrays: keys [M, 3], rf [M, 3, 3], rf_ok [M]. Model arrays carry a
     leading view axis: keys [V, Nm, 3], rf [V, Nm, 3, 3], rf_ok/mask
-    [V, Nm]; ``corrs`` fields are [V, M].
+    [V, Nm]; ``corrs`` fields are [V, M]. With B scenes (keys [B, M, 3], rf
+    [B, M, 3, 3], rf_ok [B, M]) the model arrays and ``corrs`` carry B·V
+    views in frame order.
     """
     V = model_keys.shape[0]
-    M = scene_keys.shape[0]
+    M = scene_keys.shape[-2]
     dev = scene_keys.device
+    batched = scene_keys.ndim == 3
+    if batched:      # every view sees its own frame's scene
+        per = V // scene_keys.shape[0]
+        scene_keys, scene_rf, scene_rf_ok = (
+            t.repeat_interleave(per, 0)
+            for t in (scene_keys, scene_rf, scene_rf_ok))
+    else:
+        scene_keys, scene_rf_ok = scene_keys[None], scene_rf_ok[None, :]
     mi = corrs.model_idx.long()
-    cvalid = (corrs.valid & scene_rf_ok[None, :]
+    cvalid = (corrs.valid & scene_rf_ok
               & torch.gather(model_rf_ok, 1, mi) & torch.gather(model_mask, 1, mi))
     local = model_local_votes(model_keys, model_rf, model_mask)
     cast = _gather_rows(local, mi)                              # [V, M, 3]
-    votes_xyz = scene_keys[None] + torch.einsum("mji,vmj->vmi", scene_rf, cast)
+    votes_xyz = scene_keys + torch.einsum(
+        "vmji,vmj->vmi" if batched else "mji,vmj->vmi", scene_rf, cast)
 
     cv = cvalid.to(torch.float32)
     nvalid = torch.clamp_min(cv.sum(1), 1.0)
@@ -135,8 +148,9 @@ def hough_group(
 
     if split:
         # rf rows are axes: scene_rf = model_rf·Rᵀ  ⇒  R = scene_rfᵀ·model_rf
-        R_corr = torch.einsum("mts,vmtk->vmsk", scene_rf,
-                              _gather_rows(model_rf, mi))
+        R_corr = torch.einsum(
+            "vmts,vmtk->vmsk" if batched else "mts,vmtk->vmsk", scene_rf,
+            _gather_rows(model_rf, mi))
         m1, cos1 = _consensus(membership, w, R_corr)
         m2, _ = _consensus(membership & (cos1 <= _MODE_COS), w, R_corr)
         membership = torch.stack([m1, m2], dim=2).reshape(V, 2 * n_peaks, M)
@@ -145,7 +159,7 @@ def hough_group(
     inst_valid = top_votes >= threshold
     n_corrs = membership.sum(-1, dtype=torch.int32)
     src = _gather_rows(model_keys, mi)[:, None].expand(V, P, M, 3)
-    dst = scene_keys[None, None].expand(V, P, M, 3)
+    dst = scene_keys[:, None].expand(V, P, M, 3)
     poses = umeyama(src, dst, membership.to(torch.float32) * w[:, None, :])
     return Instances(poses=poses, votes=torch.clamp_min(top_votes, 0.0),
                      n_corrs=n_corrs, valid=inst_valid & (n_corrs >= 3),

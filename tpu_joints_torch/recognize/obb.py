@@ -27,14 +27,16 @@ class OBB(NamedTuple):
 
 
 def oriented_bounding_box(cloud: Cloud) -> OBB:
+    """The PCA box of a cloud, or of each cloud of a batch ([B, N, 3]: every
+    field gains a leading B)."""
     centroid = masked_centroid(cloud.xyz, cloud.mask)
     cov = masked_covariance(cloud.xyz, cloud.mask, centroid)
     _, vecs = eigh3x3(cov)
-    e0, e1 = vecs[:, 0], vecs[:, 1]
-    R = torch.stack([e0, e1, cross(e0, e1)], dim=1)
-    local = (cloud.xyz - centroid) @ R
+    e0, e1 = vecs[..., :, 0], vecs[..., :, 1]
+    R = torch.stack([e0, e1, cross(e0, e1)], dim=-1)
+    local = (cloud.xyz - centroid[..., None, :]) @ R
     lo, hi = masked_minmax(local, cloud.mask)
-    position = R @ (0.5 * (lo + hi)) + centroid
+    position = (R @ (0.5 * (lo + hi))[..., None])[..., 0] + centroid
     euler = fold_euler_90(quaternion_to_euler(rotation_from_matrix_to_quaternion(R)))
     return OBB(position=position, rotation=R, extents=hi - lo, euler=euler,
                centroid=centroid)

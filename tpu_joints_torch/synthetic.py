@@ -3,8 +3,10 @@
 Copies of ``tpu_joints/serve/depth.py::pixel_scales`` /
 ``raycast_cylinders``, of ``bench.py``'s ``_pose``, ``_bench_pose``,
 ``_joint_parts``/``_joint_model``, ``_CYLINDERS``, ``_TABLE``, ``_frame``,
-``build_part_banks`` and the ``_make_config`` recipe with the segmented
-and two-part chains' variants of it, and of the CLI's scene recipe
+``build_part_banks`` and the ``_make_config`` recipe with the segmented,
+two-part, multi-instance and GO-HV chains' variants of it, of its
+two-instance scene and its batch of jittered frames, and of the CLI's scene
+recipe
 (``tpu_joints/cli/main.py::_detect_one``), so a host without JAX can build
 the same scenes. The tests hold every function here equal to its original.
 """
@@ -151,12 +153,14 @@ TABLE = [(np.array([0.0, 0.0, 0.45]), np.array([1.0, 0.0, 0.0]),
 
 
 def frame(T_pose: np.ndarray, seed: int, with_table: bool, width: int = 640,
-          height: int = 480):
+          height: int = 480, cylinders=None):
     """Dense raycast of the joint (+ optional table) with σ = 0.5 mm depth
     noise along the ray from ``seed``: (xyz_img float32[H, W, 3] with
-    zeros at misses, valid bool[H, W])."""
-    xyz_img = raycast_cylinders(CYLINDERS, T_pose, width=width, height=height,
-                                rects=TABLE if with_table else [])
+    zeros at misses, valid bool[H, W]). ``cylinders`` replaces the joint's
+    primitives (the two-instance scene)."""
+    xyz_img = raycast_cylinders(
+        CYLINDERS if cylinders is None else cylinders, T_pose, width=width,
+        height=height, rects=TABLE if with_table else [])
     valid = np.isfinite(xyz_img).all(axis=-1)
     sigma = np.random.default_rng(seed).normal(
         0.0, 5e-4, (height, width)).astype(np.float32)
@@ -218,6 +222,33 @@ def two_part_config():
     return dataclasses.replace(bench_config(), max_candidates=8)
 
 
+def multi_instance_config():
+    """``bench.py``'s ``multi_instance`` chain: the ``scene_latency``
+    configuration (crop flags off) with the coverage gate local to each
+    candidate's footprint, two translation peaks (four instances) per view,
+    the peak-grouped cut of 48 candidates, 12 tier-2 survivors, the full
+    tier-1 view budget and an 8192-lane working set with 1024 keys.
+    ``icp_allow_pallas=False`` is the original's setting; it is ignored
+    here (every k=1 NN runs kernel K1)."""
+    import dataclasses
+
+    return dataclasses.replace(
+        bench_config(), segment_scene=False, remove_plane=False,
+        coverage_local=True, max_instances_per_view=4,
+        peak_grouped_candidates=True, max_candidates=48, refine_top=12,
+        tier1_view_iterations=4, icp_allow_pallas=False, scene_capacity=8192,
+        scene_key_capacity=1024)
+
+
+def hv_config():
+    """``bench.py``'s ``multi_instance_hv`` chain: ``multi_instance_config``
+    with the global hypothesis verification on, 1 cm inlier threshold."""
+    import dataclasses
+
+    return dataclasses.replace(multi_instance_config(), hv_enabled=True,
+                               hv_inlier_threshold=0.01)
+
+
 def build_part_banks(cfg, device="cuda", level: int = 1,
                      resolution: int = 128, key_capacity: int = 256,
                      icp_capacity: int = 2048) -> dict:
@@ -251,6 +282,35 @@ def build_part_banks(cfg, device="cuda", level: int = 1,
 # bench.py's crop box around the joint (the PassThrough work volume)
 CROP_LO = np.array([-0.45, -0.5, 0.5], np.float32)
 CROP_HI = np.array([0.5, 0.45, 1.55], np.float32)
+# ... and the wide one of its two-instance scene
+WIDE_LO = np.array([-0.8, -0.6, 0.5], np.float32)
+WIDE_HI = np.array([0.8, 0.6, 1.7], np.float32)
+
+
+def two_instance_poses() -> Tuple[np.ndarray, np.ndarray]:
+    """``bench.py``'s two joint poses (T_a, T_b): separate objects with a
+    0.25 m surface gap, each as visible as the single joint."""
+    return (pose(25.0, -15.0, [-0.30, -0.16, 1.05]),
+            pose(-20.0, 20.0, [0.30, 0.18, 1.00]))
+
+
+def two_instance_frame(width: int = 640, height: int = 480):
+    """``bench.py``'s two-instance frame: both posed copies of the joint as
+    one 4-cylinder scene seen from the identity pose, noise seed 77, no
+    table. Returns (xyz_img, valid, T_a, T_b)."""
+    T_a, T_b = two_instance_poses()
+    cyls = [(T[:3, :3] @ c0 + T[:3, 3], T[:3, :3] @ a0, r0, h0)
+            for T in (T_a, T_b) for c0, a0, r0, h0 in CYLINDERS]
+    xyz_img, valid = frame(np.eye(4, dtype=np.float32), 77, with_table=False,
+                           width=width, height=height, cylinders=cyls)
+    return xyz_img, valid, T_a, T_b
+
+
+def batch_frames(xyz_img: np.ndarray, n: int) -> np.ndarray:
+    """``bench.py``'s batch of ``n`` frames: the frame plus N(0, 1e-4)
+    jitter on every coordinate, seeds 0..n-1; float32[n, H, W, 3]."""
+    return np.stack([xyz_img + np.random.default_rng(i).normal(
+        0, 1e-4, xyz_img.shape).astype(np.float32) for i in range(n)])
 
 
 def scene_points(pts: np.ndarray, capacity: int) -> np.ndarray:
