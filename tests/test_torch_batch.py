@@ -273,3 +273,20 @@ def test_batch_entry_checks(joint_problem):
                   torch.zeros(2, 64, 3))
     with pytest.raises(NotImplementedError, match="batch of frames"):
         tdet.prepare_scene(scene, tcfg)
+
+
+@pytest.mark.parametrize("field", ["hv_enabled", "obb_largest_cluster"])
+def test_batch_refuses_per_frame_stages(joint_problem, field):
+    """Hypothesis verification and the clustered bounding box work on one
+    frame: a batch of frames raises before any stage runs, and names the
+    per-frame entry."""
+    import types
+
+    _, _, _, tcfg, _ = joint_problem
+    cfg = dataclasses.replace(tcfg, **{field: True})
+    scene = Cloud(torch.zeros(2, 64, 3), torch.ones(2, 64, dtype=torch.bool),
+                  torch.zeros(2, 64, 3))
+    feats = types.SimpleNamespace(cloud=scene)
+    inst = types.SimpleNamespace(votes=torch.zeros(8, 1))
+    with pytest.raises(NotImplementedError, match="detect_organized per frame"):
+        tdet.refine_instances(feats, None, inst, torch.zeros(2), cfg)

@@ -88,3 +88,18 @@ def test_knn_batched_expansion_form_matches_per_entry():
         np.testing.assert_allclose(d[b].numpy(), db.numpy(), atol=1e-6)
         jb, wb, _ = radius_neighbors(q[b], s[b], 0.8, 48, m[b])
         assert torch.equal(idx[b], jb) and torch.equal(within[b], wb)
+
+
+@pytest.mark.parametrize("k", [2, 16, 32])
+def test_knn_batched_refuses_k2_orders(k):
+    """``knn`` sends a 3-D search with 2 <= k <= 32 to K2's difference form;
+    K2 has no batch mode, so the batched search raises instead of answering
+    in another form. Other widths keep the expansion form at any k."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.normal(size=(2, 8, 3)).astype(np.float32))
+    s = torch.from_numpy(rng.normal(size=(2, 40, 3)).astype(np.float32))
+    with pytest.raises(NotImplementedError, match="K2 has no batch mode"):
+        knn_batched(q, s, k)
+    q4, s4 = torch.cat([q, q[..., :1]], -1), torch.cat([s, s[..., :1]], -1)
+    d, i = knn_batched(q4, s4, k)
+    assert d.shape == (2, 8, k) and i.dtype == torch.int32

@@ -11,7 +11,8 @@ to the lowest source index, the result is in ascending order, and slots
 without a valid source carry (3e38, 0), the JAX path's padding. ``knn_batched`` is the same search with a leading
 batch axis on every argument, entry b searching entry b's sources (what
 ``jax.vmap`` of the JAX function computes): k = 1 in 3-D is one launch of
-K1's batch mode, everything else the expansion form as one batched product.
+K1's batch mode, k > 32 or D != 3 the expansion form as one batched product
+(2 <= k <= 32 in 3-D raises: K2 has no batch mode).
 """
 from __future__ import annotations
 
@@ -76,15 +77,21 @@ def knn_batched(query: torch.Tensor, source: torch.Tensor, k: int,
     query [B, M, D], source [B, N, D], source_mask bool[B, N] → (dist_sq
     float32[B, M, k], idx int32[B, M, k], indices within the entry).
 
-    3-D k = 1 goes to kernel K1's batch mode in one launch. The rest is the
-    expansion form of :func:`knn` over the batch (K2 has no batch mode; a
-    3-D 2 <= k <= 32 search is served here as well), whose batched product
-    may round the last bit differently from B separate products.
+    3-D k = 1 goes to kernel K1's batch mode in one launch. A 3-D search
+    with 2 <= k <= 32 raises: :func:`knn` sends it to K2's difference form,
+    and K2 has no batch mode, so no batched call could equal B ``knn``
+    calls. The rest (k > 32, or D != 3) is the expansion form of :func:`knn`
+    over the batch, whose batched product may round the last bit differently
+    from B separate products.
     """
     B, M, D = query.shape
     N = source.shape[1]
     if k == 1 and D == 3:
         return nn1_batched(query, source, source_mask)
+    if 2 <= k <= MAX_K and D == 3:
+        raise NotImplementedError(
+            f"K2 has no batch mode: a batched 3-D search with k = {k} would "
+            f"not equal per-entry knn calls; loop over the entries")
     if source_mask is None:
         source_mask = torch.ones((B, N), dtype=torch.bool, device=source.device)
     sqn = fused_sumsq if D == 3 else (lambda v: (v * v).sum(-1))

@@ -396,6 +396,12 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
     dev = inst.votes.device
     batched = feats.cloud.xyz.ndim == 3
     B = feats.cloud.xyz.shape[0] if batched else 1
+    if batched and (cfg.hv_enabled or cfg.obb_largest_cluster):
+        raise NotImplementedError(
+            "a batch of frames runs neither the hypothesis verification "
+            "(one joint verification per frame) nor the clustered bounding "
+            "box (its region growing reads the host per frame); call "
+            "detect_organized per frame for such a configuration")
     Vt, P = inst.votes.shape
     V = Vt // B                                  # the bank's views
     top_flat, top_votes = _candidate_cut(inst, cfg, B * n_parts)
@@ -440,15 +446,8 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         hv_kw = dict(inlier_threshold=cfg.hv_inlier_threshold,
                      outlier_regularizer=cfg.hv_regularizer,
                      occlusion_threshold=cfg.hv_occlusion_threshold)
-        if batched:      # one joint verification per frame
-            cand_verified = torch.cat([verify_hypotheses(
-                inst_xyz[b * C:(b + 1) * C], inst_mask[b * C:(b + 1) * C],
-                cand_valid[b * C:(b + 1) * C],
-                Cloud(*(t[b] for t in feats.cloud)), **hv_kw)
-                for b in range(B)])
-        else:
-            cand_verified = verify_hypotheses(inst_xyz, inst_mask, cand_valid,
-                                              feats.cloud, **hv_kw)
+        cand_verified = verify_hypotheses(inst_xyz, inst_mask, cand_valid,
+                                          feats.cloud, **hv_kw)
         effective_fitness = torch.where(cand_verified, cand_fitness, _BIG)
     else:
         cand_verified = cand_valid
@@ -545,12 +544,11 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         + view_pose[:, None, :3, 3],
         mask=bank.view_mask[view_idx], rgb=torch.zeros_like(view_xyz))
     if cfg.obb_largest_cluster:
-        # the reference's OBB: box the aligned view's dominant smooth
-        # cluster (its region growing reads the host: frame by frame)
-        boxes = [oriented_bounding_box_clustered(
-            Cloud(*(t[b] for t in aligned)),
-            min_cluster_size=cfg.rg_min_cluster) for b in range(B)]
-        box = OBB(*(torch.stack(f) for f in zip(*boxes)))
+        # the reference's OBB: box the aligned view's dominant smooth cluster
+        b1 = oriented_bounding_box_clustered(
+            Cloud(*(t[0] for t in aligned)),
+            min_cluster_size=cfg.rg_min_cluster)
+        box = OBB(*(f[None] for f in b1))
     else:
         box = oriented_bounding_box(aligned)
 
@@ -744,13 +742,16 @@ def detect_organized_batch(
 ):
     """B raw organized frames float32[B, H, W, 3] + valids bool[B, H, W] →
     B poses in one pass: the steady state of a server that drains its queue
-    into a batch. Every stage takes the batch (see the module docstring);
-    only the final bounding box is fitted frame by frame. Each frame's
+    into a batch. Every stage takes the batch (see the module docstring).
+    Each frame's
     result equals its own ``detect_organized`` run up to the rounding of the
     batched products.
 
     The crop chain (``cfg.segment_scene`` / ``cfg.remove_plane``) is not
     batched: its lattice region growing reads the host once per frame.
+    ``cfg.hv_enabled`` and ``cfg.obb_largest_cluster`` raise as well: the
+    verification is joint over one frame's candidates, and the clustered
+    box's region growing reads the host.
 
     Returns ``(DetectionResult, n_selected[B])`` with a leading batch axis
     on every leaf.
