@@ -149,18 +149,14 @@ def _leaves(res):
     return out
 
 
-@pytest.mark.parametrize("problem", ["cylinder_problem", "joint_problem"])
-def test_batch_equals_per_frame_runs(problem, request):
+def assert_batch_equals_singles(rt, nt, singles):
     """Every leaf of the batch result has a leading B and equals the
     frame's own ``detect_organized`` run: integers and flags exactly, the
     floats within 1e-5, of the candidate tables the winner's row within
     1e-3 (see the module docstring for the other rows)."""
-    imgs, valids, (_, (rt, nt), singles), *_ = request.getfixturevalue(problem)
-    B = len(imgs)
+    B = len(singles)
     assert rt.full_pose.shape == (B, 4, 4) and nt.shape == (B,)
     assert rt.metrics["has_model"] is True
-    assert any(bool(r.accepted) for r, _ in singles) == (
-        problem == "joint_problem")
     for b, (r1, n1) in enumerate(singles):
         assert int(nt[b]) == int(n1)
         ok = int((r1.metrics["cand_full_poses"] - r1.full_pose).abs().amax(
@@ -187,6 +183,16 @@ def test_batch_equals_per_frame_runs(problem, request):
             else:
                 np.testing.assert_allclose(a.numpy(), one.numpy(), atol=1e-5,
                                            err_msg=name)
+
+
+@pytest.mark.parametrize("problem", ["cylinder_problem", "joint_problem"])
+def test_batch_equals_per_frame_runs(problem, request):
+    """The batch against each frame's own run (``assert_batch_equals_singles``);
+    only the joint's frames are accepted."""
+    imgs, valids, (_, (rt, nt), singles), *_ = request.getfixturevalue(problem)
+    assert any(bool(r.accepted) for r, _ in singles) == (
+        problem == "joint_problem")
+    assert_batch_equals_singles(rt, nt, singles)
 
 
 @pytest.mark.parametrize("problem", ["cylinder_problem", "joint_problem"])
@@ -266,27 +272,7 @@ def test_batch_entry_checks(joint_problem):
            "model_mask": np.zeros(8, bool), "params_hash": "x"}, device="cpu")
     with pytest.raises(ValueError, match=r"\[B, H, W, 3\]"):
         tdet.detect_organized_batch(_t(imgs[0]), _t(valids[0]), bank, tcfg)
-    seg = dataclasses.replace(tcfg, segment_scene=True)
-    with pytest.raises(NotImplementedError, match="crop chain"):
-        tdet.detect_organized_batch(_t(imgs), _t(valids), bank, seg)
     scene = Cloud(torch.zeros(2, 64, 3), torch.ones(2, 64, dtype=torch.bool),
                   torch.zeros(2, 64, 3))
     with pytest.raises(NotImplementedError, match="batch of frames"):
         tdet.prepare_scene(scene, tcfg)
-
-
-@pytest.mark.parametrize("field", ["hv_enabled", "obb_largest_cluster"])
-def test_batch_refuses_per_frame_stages(joint_problem, field):
-    """Hypothesis verification and the clustered bounding box work on one
-    frame: a batch of frames raises before any stage runs, and names the
-    per-frame entry."""
-    import types
-
-    _, _, _, tcfg, _ = joint_problem
-    cfg = dataclasses.replace(tcfg, **{field: True})
-    scene = Cloud(torch.zeros(2, 64, 3), torch.ones(2, 64, dtype=torch.bool),
-                  torch.zeros(2, 64, 3))
-    feats = types.SimpleNamespace(cloud=scene)
-    inst = types.SimpleNamespace(votes=torch.zeros(8, 1))
-    with pytest.raises(NotImplementedError, match="detect_organized per frame"):
-        tdet.refine_instances(feats, None, inst, torch.zeros(2), cfg)

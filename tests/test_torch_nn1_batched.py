@@ -12,7 +12,7 @@ import torch
 
 from tpu_joints.neighbors.pallas_knn import knn_pallas
 from tpu_joints_torch.neighbors import pallas_knn as k1
-from tpu_joints_torch.neighbors.bruteforce import knn_batched
+from tpu_joints_torch.neighbors.bruteforce import knn, knn_batched
 from tpu_joints_torch.neighbors.knn_cases import batches
 
 CASES = sorted(set(batches()) - {"rows_fill_the_card"})
@@ -93,13 +93,19 @@ def test_knn_batched_expansion_form_matches_per_entry():
 @pytest.mark.parametrize("k", [2, 16, 32])
 def test_knn_batched_refuses_k2_orders(k):
     """``knn`` sends a 3-D search with 2 <= k <= 32 to K2's difference form;
-    K2 has no batch mode, so the batched search raises instead of answering
-    in another form. Other widths keep the expansion form at any k."""
+    K2 has no batch mode, so the batched search takes K2 entry by entry and
+    equals B ``knn`` calls exactly, never another form. Other widths keep
+    the expansion form at any k."""
     rng = np.random.default_rng(6)
     q = torch.from_numpy(rng.normal(size=(2, 8, 3)).astype(np.float32))
     s = torch.from_numpy(rng.normal(size=(2, 40, 3)).astype(np.float32))
-    with pytest.raises(NotImplementedError, match="K2 has no batch mode"):
-        knn_batched(q, s, k)
+    m = torch.from_numpy(rng.uniform(size=(2, 40)) > 0.3)
+    for mask in (None, m):
+        d, i = knn_batched(q, s, k, source_mask=mask)
+        for b in range(2):
+            db, ib = knn(q[b], s[b], k,
+                         source_mask=None if mask is None else mask[b])
+            assert torch.equal(d[b], db) and torch.equal(i[b], ib)
     q4, s4 = torch.cat([q, q[..., :1]], -1), torch.cat([s, s[..., :1]], -1)
     d, i = knn_batched(q4, s4, k)
     assert d.shape == (2, 8, k) and i.dtype == torch.int32

@@ -11,10 +11,12 @@ points sit at ``core.cloud.SENTINEL``), no host synchronisation inside
 PyTorch version.
 
 The JAX reference computes every geometry and descriptor product at full
-float32 precision, so TF32 matrix products are switched off here.
+float32 precision, so TF32 is switched off here for matrix products and
+for cuDNN convolutions alike.
 """
 import torch
 
 torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"

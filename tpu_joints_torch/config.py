@@ -7,7 +7,8 @@ documented on the reference's ``DetectionConfig``.
 
 Fields that only steer TPU-runtime workarounds are accepted and ignored
 here: ``icp_rows_per_call`` and ``icp_allow_pallas`` (every k=1 NN runs the
-one CUDA kernel, in one call).
+one CUDA kernel, in one call). ``PRESETS`` holds the reference programs'
+presets, value for value.
 """
 from __future__ import annotations
 
@@ -95,6 +96,68 @@ class DetectionConfig:
     scene_capacity: int = 16384
     scene_key_capacity: int = 1024
     k_max: int = 96
+
+
+# ---------------------------------------------------------------------------
+# Presets mirroring the reference programs (the comments name their sources)
+# ---------------------------------------------------------------------------
+
+SHOT_STREAM = DetectionConfig(
+    # SHOT.cpp: model_ss 0.02, scene_ss 0.02, SHOT r=0.02, 1-NN < 0.20,
+    # Hough bin 0.03 / thresh 3.0, ICP accept <= 0.001
+    descriptor="shot", model_ss=0.02, scene_ss=0.02, descr_rad=0.02,
+    match_mode="nn", match_threshold=0.20, algorithm="hough",
+    cg_size=0.03, cg_thresh=3.0, accept_fitness=0.001,
+)
+
+SHOT_SEGMENT = DetectionConfig(
+    # SHOT_segment.cpp: model_ss 0.005, scene_ss 0.01, 1-NN < 0.25, k=20 normals
+    descriptor="shot", model_ss=0.005, scene_ss=0.01, descr_rad=0.02,
+    normal_k=20, match_mode="nn", match_threshold=0.25,
+)
+
+SHOT_DEMO = DetectionConfig(
+    # SHOT_demo.cpp: region-growing scene crop, VoxelGrid 0.03 keypoints,
+    # ratio-test tau <= 1, chained full-CAD ICP accept < 0.006
+    descriptor="shot", scene_ss=0.03, model_ss=0.02,
+    match_mode="ratio", ratio=1.0, segment_scene=True,
+    accept_fitness=0.006, final_icp_iterations=3,
+    obb_largest_cluster=True,         # SHOT_demo.cpp:697-740 OBB pre-step
+)
+
+FPFH_DEMO = DetectionConfig(
+    # FPFH_demo.cpp: FPFH r=0.15 over the keypoint cloud itself, radius
+    # normals, BOARD frames, VoxelGrid 0.03/0.02, ratio tau <= 1,
+    # region-growing crop, chained full-CAD ICP accept < 0.006 (the FPFH
+    # descriptor is not ported yet: ROADMAP queue 1 item 12)
+    descriptor="fpfh", descr_rad=0.15, scene_ss=0.03, model_ss=0.02,
+    fpfh_surface="keys", fpfh_k_max=192,
+    normal_radius=0.15,
+    rf_frames="board",
+    match_mode="ratio", ratio=1.0, segment_scene=True,
+    accept_fitness=0.006, final_icp_iterations=3,
+    obb_largest_cluster=True,
+)
+
+SHOT_HYPOTHESIS = DetectionConfig(
+    # SHOT_hypothesis.cpp: 1-NN < 0.25, ICP max-corr-dist 0.001, GO-HV on
+    descriptor="shot", match_mode="nn", match_threshold=0.25,
+    icp_max_corr_dist=0.001, hv_enabled=True,
+)
+
+SIX_D_POSE = DetectionConfig(
+    # 6Dpose.cpp: normals k=10, 1-NN < 0.20, Hough
+    descriptor="shot", normal_k=10, match_mode="nn", match_threshold=0.20,
+)
+
+PRESETS = {
+    "shot": SHOT_STREAM,
+    "shot_segment": SHOT_SEGMENT,
+    "shot_demo": SHOT_DEMO,
+    "fpfh_demo": FPFH_DEMO,
+    "shot_hypothesis": SHOT_HYPOTHESIS,
+    "6dpose": SIX_D_POSE,
+}
 
 
 def from_dict(d: dict) -> DetectionConfig:

@@ -23,7 +23,10 @@ whole aligned view, or of its largest smooth cluster: K2 again).
 every stage carries the batch as a leading axis or folds it into an axis it
 already batches over (keypoints into SHOT's rows, frames into Hough's views
 and into the ICP's candidates, whose k=1 searches become one launch of K1's
-batch mode, each frame's candidates against that frame's scene).
+batch mode, each frame's candidates against that frame's scene). Three
+stages work on one frame and run frame by frame inside the batched pass:
+the lattice crop chain, the hypothesis verification (joint over one frame's
+candidates) and the clustered box.
 
 Shapes are fixed by the config, every branch is on configuration or on
 host facts about the bank (``ModelBank.has_model``), and indexing with a
@@ -31,8 +34,9 @@ computed index goes through gathers, so the only host synchronisations are
 those of the region growing, which reads its convergence flag once every 8
 sweeps: the lattice one (``segment/organized.py``) in ``detect_organized``
 with ``cfg.segment_scene``, the graph one (``segment/region_growing.py``)
-in ``detect``'s crop and in the clustered OBB. ``detect_organized`` without
-the crop chain never synchronises.
+in ``detect``'s crop and in the clustered OBB (on a batch, those reads
+happen per frame). ``detect_organized`` without the crop chain never
+synchronises.
 """
 from __future__ import annotations
 
@@ -392,16 +396,11 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
     folded into one candidate axis of B·C, frame b's at [b·C, (b+1)·C), so
     each ICP iteration is one launch of K1's batch mode and each coverage
     one folded K1 launch; ranking, selection and gates run per frame, and
-    every leaf of the result gains a leading B."""
+    every leaf of the result gains a leading B. The hypothesis verification
+    and the clustered box run frame by frame."""
     dev = inst.votes.device
     batched = feats.cloud.xyz.ndim == 3
     B = feats.cloud.xyz.shape[0] if batched else 1
-    if batched and (cfg.hv_enabled or cfg.obb_largest_cluster):
-        raise NotImplementedError(
-            "a batch of frames runs neither the hypothesis verification "
-            "(one joint verification per frame) nor the clustered bounding "
-            "box (its region growing reads the host per frame); call "
-            "detect_organized per frame for such a configuration")
     Vt, P = inst.votes.shape
     V = Vt // B                                  # the bank's views
     top_flat, top_votes = _candidate_cut(inst, cfg, B * n_parts)
@@ -446,8 +445,15 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         hv_kw = dict(inlier_threshold=cfg.hv_inlier_threshold,
                      outlier_regularizer=cfg.hv_regularizer,
                      occlusion_threshold=cfg.hv_occlusion_threshold)
-        cand_verified = verify_hypotheses(inst_xyz, inst_mask, cand_valid,
-                                          feats.cloud, **hv_kw)
+        if batched:      # one joint verification per frame, never across
+            cand_verified = torch.cat([verify_hypotheses(
+                inst_xyz[b * C:(b + 1) * C], inst_mask[b * C:(b + 1) * C],
+                cand_valid[b * C:(b + 1) * C],
+                Cloud(*(t[b] for t in feats.cloud)), **hv_kw)
+                for b in range(B)])
+        else:
+            cand_verified = verify_hypotheses(inst_xyz, inst_mask, cand_valid,
+                                              feats.cloud, **hv_kw)
         effective_fitness = torch.where(cand_verified, cand_fitness, _BIG)
     else:
         cand_verified = cand_valid
@@ -544,11 +550,12 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         + view_pose[:, None, :3, 3],
         mask=bank.view_mask[view_idx], rgb=torch.zeros_like(view_xyz))
     if cfg.obb_largest_cluster:
-        # the reference's OBB: box the aligned view's dominant smooth cluster
-        b1 = oriented_bounding_box_clustered(
-            Cloud(*(t[0] for t in aligned)),
-            min_cluster_size=cfg.rg_min_cluster)
-        box = OBB(*(f[None] for f in b1))
+        # the reference's OBB: box the aligned view's dominant smooth
+        # cluster (its region growing reads the host: frame by frame)
+        boxes = [oriented_bounding_box_clustered(
+            Cloud(*(t[b] for t in aligned)),
+            min_cluster_size=cfg.rg_min_cluster) for b in range(B)]
+        box = OBB(*(torch.stack(f) for f in zip(*boxes)))
     else:
         box = oriented_bounding_box(aligned)
 
@@ -656,8 +663,20 @@ def organized_features(xyz_img, valid, cfg: DetectionConfig, block: int,
                        half_window: int, crop_lo, crop_hi,
                        viewpoint) -> Tuple[SceneFeatures, torch.Tensor]:
     """Raw organized frame → (SceneFeatures, n_selected): the ingest, with
-    the lattice crop chain when cfg asks for it, then ``prepare_scene``."""
-    if cfg.segment_scene or cfg.remove_plane:
+    the lattice crop chain when cfg asks for it, then ``prepare_scene``. A
+    batch of frames [B, H, W, 3] runs the crop chain frame by frame (its
+    lattice region growing reads the host per frame) and stacks the
+    working sets."""
+    if (cfg.segment_scene or cfg.remove_plane) and xyz_img.ndim == 4:
+        frames = [ingest_organized_segmented(
+            img, vmask, cfg, block=block, half_window=half_window,
+            crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint)
+            for img, vmask in zip(xyz_img, valid)]
+        clouds, normals, curvature, n_sel = zip(*frames)
+        scene = Cloud(*(torch.stack(f) for f in zip(*clouds)))
+        normals, curvature, n_sel = (torch.stack(t)
+                                     for t in (normals, curvature, n_sel))
+    elif cfg.segment_scene or cfg.remove_plane:
         scene, normals, curvature, n_sel = ingest_organized_segmented(
             xyz_img, valid, cfg, block=block, half_window=half_window,
             crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint)
@@ -742,16 +761,11 @@ def detect_organized_batch(
 ):
     """B raw organized frames float32[B, H, W, 3] + valids bool[B, H, W] →
     B poses in one pass: the steady state of a server that drains its queue
-    into a batch. Every stage takes the batch (see the module docstring).
-    Each frame's
-    result equals its own ``detect_organized`` run up to the rounding of the
-    batched products.
-
-    The crop chain (``cfg.segment_scene`` / ``cfg.remove_plane``) is not
-    batched: its lattice region growing reads the host once per frame.
-    ``cfg.hv_enabled`` and ``cfg.obb_largest_cluster`` raise as well: the
-    verification is joint over one frame's candidates, and the clustered
-    box's region growing reads the host.
+    into a batch. Every stage takes the batch (see the module docstring);
+    the crop chain (``cfg.segment_scene`` / ``cfg.remove_plane``), the
+    hypothesis verification and the clustered box run frame by frame inside
+    it. Each frame's result equals its own ``detect_organized`` run up to
+    the rounding of the batched products.
 
     Returns ``(DetectionResult, n_selected[B])`` with a leading batch axis
     on every leaf.
@@ -759,12 +773,8 @@ def detect_organized_batch(
     if xyz_imgs.ndim != 4 or valids.ndim != 3:
         raise ValueError(f"expected [B, H, W, 3] frames and [B, H, W] valids, "
                          f"got {tuple(xyz_imgs.shape)} and {tuple(valids.shape)}")
-    if cfg.segment_scene or cfg.remove_plane:
-        raise NotImplementedError(
-            "detect_organized_batch does not run the crop chain; call "
-            "detect_organized per frame for a segmented configuration")
     _check_devices(bank.device, xyz_imgs, valids, crop_lo, crop_hi, viewpoint)
     cfg = _tier_cfg(bank, cfg)
     feats, n_sel = organized_features(xyz_imgs, valids, cfg, block,
                                       half_window, crop_lo, crop_hi, viewpoint)
-    return detect_with_features(feats, bank, cfg), n_sel
+    return detect_with_features(feats, bank, _strip_crop(cfg)), n_sel

@@ -1,7 +1,7 @@
 """Synthetic frames and the bench joint, in numpy (no JAX).
 
-Copies of ``tpu_joints/serve/depth.py::pixel_scales`` /
-``raycast_cylinders``, of ``bench.py``'s ``_pose``, ``_bench_pose``,
+Frames are raycast with ``serve/depth.py::raycast_cylinders`` (the port's
+copy of the reference's). Copies of ``bench.py``'s ``_pose``, ``_bench_pose``,
 ``_joint_parts``/``_joint_model``, ``_CYLINDERS``, ``_TABLE``, ``_frame``,
 ``build_part_banks`` and the ``_make_config`` recipe with the segmented,
 two-part, multi-instance and GO-HV chains' variants of it, of its
@@ -16,78 +16,7 @@ from typing import Tuple
 
 import numpy as np
 
-
-def pixel_scales(width: int, height: int, fov_deg: float = 57.0
-                 ) -> Tuple[np.ndarray, np.ndarray]:
-    """(x_scale float32[W], y_scale float32[H]): pixel (u, v) at depth z
-    unprojects to (z·x_scale[u], z·y_scale[v], z); x is negated to match
-    the reference camera frame."""
-    tan_half = np.tan(np.radians(fov_deg) / 2.0)
-    xs = -(2.0 * (np.arange(width) + 0.5) / width - 1.0) * tan_half
-    ys = (2.0 * (np.arange(height) + 0.5) / height - 1.0) * tan_half * (height / width)
-    return xs.astype(np.float32), ys.astype(np.float32)
-
-
-def raycast_cylinders(cylinders, T_model_to_cam: np.ndarray, width: int = 640,
-                      height: int = 480, fov_deg: float = 57.0,
-                      rects=()) -> np.ndarray:
-    """Analytic dense depth of finite cylinders (lateral surfaces) and
-    bounded rectangles: float32[H, W, 3] camera-frame cloud, NaN at misses.
-
-    cylinders: (center[3], unit_axis[3], radius, half_length) in model frame;
-    rects: (center[3], u_axis[3], v_axis[3], half_u, half_v).
-    """
-    xs, ys = pixel_scales(width, height, fov_deg)
-    d = np.stack(
-        [np.broadcast_to(xs[None, :], (height, width)),
-         np.broadcast_to(ys[:, None], (height, width)),
-         np.ones((height, width), np.float32)], axis=-1,
-    ).reshape(-1, 3)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    T = np.asarray(T_model_to_cam, np.float64)
-    Rmc = T[:3, :3].T
-    o_m = -T[:3, :3].T @ T[:3, 3]
-    d_m = d @ Rmc.T
-
-    best_t = np.full(d.shape[0], np.inf)
-    for (c, a, r, h) in cylinders:
-        c = np.asarray(c, np.float64)
-        a = np.asarray(a, np.float64)
-        a = a / np.linalg.norm(a)
-        oc = o_m - c
-        o_ax = oc @ a
-        d_ax = d_m @ a
-        o_perp = oc - o_ax * a
-        d_perp = d_m - np.outer(d_ax, a)
-        A = np.einsum("ij,ij->i", d_perp, d_perp)
-        B = 2.0 * (d_perp @ o_perp)
-        C = float(o_perp @ o_perp) - r * r
-        disc = B * B - 4.0 * A * C
-        hit = (disc >= 0) & (A > 1e-12)
-        sq = np.sqrt(np.maximum(disc, 0.0))
-        for sign in (-1.0, 1.0):
-            t = (-B + sign * sq) / np.maximum(2.0 * A, 1e-12)
-            z_ax = o_ax + t * d_ax
-            good = hit & (t > 1e-6) & (np.abs(z_ax) <= h)
-            best_t = np.where(good & (t < best_t), t, best_t)
-
-    for (c, u, v, hu, hv) in rects:
-        c = np.asarray(c, np.float64)
-        u = np.asarray(u, np.float64)
-        u = u / np.linalg.norm(u)
-        v = np.asarray(v, np.float64)
-        v = v / np.linalg.norm(v)
-        n = np.cross(u, v)
-        denom = d_m @ n
-        t = ((c - o_m) @ n) / np.where(np.abs(denom) > 1e-12, denom, np.nan)
-        p = o_m + t[:, None] * d_m
-        inside = (np.abs((p - c) @ u) <= hu) & (np.abs((p - c) @ v) <= hv)
-        good = inside & (t > 1e-6)
-        best_t = np.where(good & (t < best_t), t, best_t)
-
-    cam_pts = d * best_t[:, None]
-    cam_pts[~np.isfinite(best_t)] = np.nan
-    return cam_pts.reshape(height, width, 3).astype(np.float32)
+from tpu_joints_torch.serve.depth import raycast_cylinders
 
 
 def pose(ay_deg: float, ax_deg: float, t) -> np.ndarray:
