@@ -3,11 +3,12 @@ excepted: one card has nothing to shard) on the port's server, and the
 server, its depth module, its native library, its presets and its CLI
 against the JAX package's on the CPU.
 
-Two banks, both built by the JAX package at level 0 and carried to the port
-with ``bank_from_numpy(device="cpu")``: ``tests/test_serve.py``'s small
-service (1024 scene lanes), and the bench chain at test size
-(``tests/test_torch_batch.py::joint_problem``'s configuration) for a depth
-frame that both packages accept. Parity: ``accepted``, ``view_idx``,
+Two level-0 banks: ``tests/test_serve.py``'s small service (1024 scene
+lanes), built by the JAX package and carried to the port with
+``bank_from_numpy(device="cpu")``, and the bench joint's for the bench chain
+at test size (``tests/test_torch_batch.py::joint_problem``'s
+configuration), built by the port and handed to the JAX package as the same
+arrays, for a depth frame that both packages accept. Parity: ``accepted``, ``view_idx``,
 ``n_corrs`` and the metric counts equal; pose within 5e-4; grasp centroid
 within 1e-4 (the port computes it on the host in float32, the reference
 with XLA).
@@ -37,6 +38,7 @@ from tpu_joints.core.io import PointData, save_pcd
 from tpu_joints.core.transforms import transform_points
 from tpu_joints.modelbank import build_bank as jbuild_bank
 from tpu_joints.modelbank import render_views, view_poses
+from tpu_joints.modelbank.bank import ModelBank as JModelBank
 from tpu_joints.serve import DetectionService as JDetectionService
 from tpu_joints.serve import depth as jdepth
 from tpu_joints_torch import config as tconfig
@@ -560,16 +562,19 @@ def bench_problem():
         tier1_iterations=4, tier1_view_iterations=3,
         tier1_polish_iterations=4, scene_capacity=3072,
         scene_key_capacity=256, coverage_accept=0.02)
-    jb = jbuild_bank(
+    tb = tbank.build_bank(
         syn.joint_model(3000, 1800), descriptor="shot", descr_radius=0.06,
         rf_radius=0.06, rf_k_max=96, frames="board", sampling_radius=0.02,
         normal_k=16, k_max=96, level=0, resolution=64, surface_leaf=0.01,
-        key_capacity=64, icp_capacity=1024)
+        key_capacity=64, icp_capacity=1024, device="cpu")
+    arrays = tb.to_numpy()
+    jb = JModelBank(**{k: jnp.asarray(arrays[k]) for k in ARRAYS},
+                    params_hash=tb.params_hash)
     xyz, _ = syn.frame(syn.bench_pose(), 42, with_table=False, width=320,
                        height=240)
     depth = xyz[..., 2]
     ref = JDetectionService(jb, jcfg).detect_depth(depth)
-    return jcfg, _carry(jb), depth, ref, jb
+    return jcfg, tb, depth, ref, jb
 
 
 def test_detect_depth_matches_jax(bench_problem):
