@@ -39,7 +39,7 @@ Phases (any failure raises and the exit code is non-zero):
   5. organized path — detect_organized on a 640×480 frame of the bench
                joint with bench.py's scene_latency config: K1 launches (by
                shape) and host syncs over one run (none allowed), latency
-               over 5 runs, gate < 1° / < 5 mm, and the same chain at small
+               over 3 runs, gate < 1° / < 5 mm, and the same chain at small
                size against the CPU path;
   6. generic path — detect on the same frame's points as an unorganized
                2560-point cloud (the CLI's recipe) with the SHOT_demo-shaped
@@ -47,7 +47,7 @@ Phases (any failure raises and the exit code is non-zero):
                must equal the region-growing schedule's reads), every K2
                launch rechecked, K2 timed at the region-growing and
                clustered-OBB shapes against its plain version and
-               cdist+topk, latency over 5 runs, the gate, and the same path
+               cdist+topk, latency over 3 runs, the gate, and the same path
                at small size against the CPU path;
   7. segmented organized path — detect_organized on the same pose's frame
                with the workshop table behind the joint and bench.py's
@@ -55,14 +55,14 @@ Phases (any failure raises and the exit code is non-zero):
                region growing and the curvature filter on the 120×160 tile
                lattice): K1 and K2 launches and host syncs over one run
                (syncs must equal the lattice region growing's reads),
-               latency over 5 runs, the gate, and the same chain at small
+               latency over 3 runs, the gate, and the same chain at small
                size against the CPU path;
   8. two-part path — the {chord, stub} part banks of bench.py built on the
                card (84 K2 launches, every launch's inputs rechecked), their
                concatenation and shared-CAD check made once, then
                detect_parts_organized on the table frame with bench.py's
                scene_latency_two_part config: launches, host syncs (again
-               the lattice region growing's reads), latency over 5 runs,
+               the lattice region growing's reads), latency over 3 runs,
                the gate, the winning part, and the candidate field at small
                size against the CPU path;
   9. multi-instance — detect_organized on bench.py's two-instance frame
@@ -118,8 +118,31 @@ Phases (any failure raises and the exit code is non-zero):
                1 deg / 5 mm; 12.5 a points request (phase 6's cloud through
                the native ingest, which must have built): equal to phase 6's
                detect, the gate. Every shape a served path launches that no
-               earlier path did is rechecked bit for bit on its inputs.
-The paths' timed frames are 5 each. Every timing gives the kernel, its plain version and cdist+topk (CUDA
+               earlier path did is rechecked bit for bit on its inputs, and
+               the shapes only a served path launches are timed (5 calls);
+ 13. FPFH and the generic options — 13.1 bench.py's FPFH bank
+               (synthetic.fpfh_bank_recipe) built on the card (K2 launches
+               rechecked) and its scene_latency_fpfh frame
+               (synthetic.fpfh_config, the table frame, the crop box):
+               launches by shape, every K1 launch rechecked on its recorded
+               inputs, syncs equal to the lattice region growing's reads,
+               median of 3 frames, device busy, bank seconds, and the result
+               held to the JAX package's on the CPU (FPFH_CPU_JAX): the same
+               accept flag and winning view, rotation and translation errors
+               within 0.1 deg / 1 mm of its; 13.2 on phase 6's cloud:
+               anchored normals (anchors >= capacity bit-equal to
+               estimate_normals; 1024 anchors: their K2 and K1 launches
+               rechecked and timed, and tests/test_anchor_normals.py's
+               agreement gate), then detect with normal_anchors,
+               algorithm="gc", keypoints="iss" and rg_backend="voxel" (every
+               launch rechecked, syncs equal to the region growings' reads;
+               all but ISS within 1 deg / 5 mm, ISS reported), and SHOT's
+               "pcl" scheme on phase 6's keys, card against CPU (reported);
+               13.3 the fpfh_demo preset on its own 42-view bank (radius
+               normals) served at 8192 lanes: warmup, one table frame over
+               HTTP, the reply equal to a direct detect_organized, the
+               shapes no other path launches timed (5 calls).
+The paths' timed frames are 3 each. Every timing gives the kernel, its plain version and cdist+topk (CUDA
 events and profiler device time) beside the bound and the shape's launches
 per bank build, organized frame and generic frame. The kernels JSON line
 (per kernel: its main shape's numbers, and "timings" for every timed shape)
@@ -641,7 +664,7 @@ def _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card):
                            "candidate field")
 
 
-def _timed_runs(run, n=5):
+def _timed_runs(run, n=3):
     import torch
 
     for _ in range(2):
@@ -800,7 +823,7 @@ def _reply_gate(label, reply, T, card):
 
 
 def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
-                 frames, n_batch=8):
+                 frames, timings, n_batch=8):
     """Phase 12: the detection server on the card, driven over HTTP with
     depth frames at the frames' full size (see the module docstring).
     ``cfgs`` holds the organized (det), segmented (seg), GO-HV (hv) and
@@ -895,6 +918,22 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
                 else:
                     check(q, s_, k, m, f"{label} {shape}, recorded inputs")
             done.add(shape)
+
+    def time_served_shapes(label, rec, shapes):
+        """Time the served-only ``shapes`` on their recorded inputs (K1, or
+        K1's batch mode for a 4-tuple), 5 calls each."""
+        from tpu_joints_torch.neighbors import pallas_knn as pk
+
+        for shape in shapes:
+            q, s_, k, m = rec.first(shape)
+            if len(shape) == 4:
+                timings["batched"].append(_time_nn1_batched(
+                    pk, q.contiguous(), s_, m, card,
+                    f"{label} K1 batched {shape}", reps=5))
+            else:
+                timings[1].append(_time_knn(pk, q, s_, m, k, card,
+                                            f"{label} K1 {shape}", reps=5))
+        torch.cuda.empty_cache()
 
     def same_reply(label, reply, ref, res):
         """Phase 11's gate on a batched reply against the reply of the
@@ -1038,6 +1077,9 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
                            f"{svc_s.n_batches} batches) and launched K2 "
                            f"{len(rec.k2_calls())} times")
     recheck_new_shapes("phase 12.3", rec, k2_all=True)
+    time_served_shapes("phase 12.3", rec, [(4, 8192, 8192, 1),
+                                           (131072, 4096, 1),
+                                           (524288, 2048, 1)])
     launches["served segmented"] = rec.shapes()
     single = DetectionService(bank, seg_box_cfg)
     worst_box, n_acc = 0.0, 0
@@ -1099,6 +1141,9 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
         raise RuntimeError(f"the HV batch read the host {len(syncs)} times "
                            f"in {svc_h.n_batches} batches")
     recheck_new_shapes("phase 12.4", rec)
+    time_served_shapes("phase 12.4", rec, [(2, 24576, 8192, 1),
+                                           (196608, 4096, 1),
+                                           (786432, 2048, 1)])
     launches["served hv"] = rec.shapes()
     def joints(r):
         """The GOOD instances of a result (phase 9's separation), each with
@@ -1186,6 +1231,317 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
     # 4 segmented requests, the 2 HV requests, the points request
     return {"served streaming": stream[0][4], "served batch": nb,
             "served segmented": ns, "served hv": nh, "served points": npnt}
+
+
+# the JAX package's detect_organized on the FPFH frame on the CPU
+# (scripts/full_size_reference.py fpfh [--port-bank]): on the same bank as
+# the port builds it, the result phase 13.1 reproduces; on the JAX
+# package's own bank, printed beside it
+FPFH_CPU_JAX = dict(accepted=False, view=38, rot_deg=11.985, trans_mm=76.272)
+FPFH_CPU_JAX_OWN_BANK = dict(accepted=False, view=38, rot_deg=11.888,
+                             trans_mm=77.454)
+
+
+def _fpfh_phase(dev, card, bank, launches, check, timings, frames, gen_cfg):
+    """Phase 13: the FPFH chain at bench width (13.1), the generic path's
+    options on phase 6's cloud (13.2) and the ``fpfh_demo`` preset served
+    (13.3); see the module docstring. ``frames`` holds the table frame
+    (tab, tab_valid), its pose T, the crop box (lo, hi) and phase 6's cloud
+    (scene). Adds each path's launches by shape to ``launches`` and returns
+    its (K1, K1 batched, K2) launch counts by path."""
+    counts = {}
+    for part in (_fpfh_frame, _fpfh_options, _fpfh_served):
+        counts.update(part(dev, card, bank, launches, check, timings, frames,
+                           gen_cfg))
+    return counts
+
+
+def _run_counted(label, run, check, card):
+    """One run with every launch count, the syncs and the region growings'
+    reads taken from 0; every K1 and K2 launch rechecked bit for bit on its
+    recorded inputs. Returns (result, recorder, (K1, K1 batched, K2)
+    launches, syncs, (lattice, graph, voxel) reads)."""
+    from tpu_joints_torch.neighbors import bruteforce
+    from tpu_joints_torch.neighbors import pallas_knn as pk
+    from tpu_joints_torch.segment import organized as lattice
+    from tpu_joints_torch.segment import region_growing as rg
+    from tpu_joints_torch.segment import voxel
+
+    pk.nn1.launches = pk.nn1_batched.launches = pk.knnk.launches = 0
+    lattice.region_growing_lattice.host_checks = 0
+    rg.region_growing.host_checks = 0
+    voxel.region_growing_voxel.host_checks = 0
+    with _Recorder(bruteforce) as rec:
+        out, syncs = _count_syncs(run)
+    n = (pk.nn1.launches, pk.nn1_batched.launches, pk.knnk.launches)
+    reads = (lattice.region_growing_lattice.host_checks,
+             rg.region_growing.host_checks,
+             voxel.region_growing_voxel.host_checks)
+    print(f"# {label}: nn1 launched {n[0]} times, nn1_batched {n[1]}, knnk "
+          f"{n[2]}; launches by shape: {dict(sorted(rec.shapes().items()))}; "
+          f"host synchronisations flagged: {len(syncs)}, region-growing host "
+          f"reads (lattice, graph, voxel): {reads} {card}", flush=True)
+    for msg in sorted(set(syncs))[:5]:
+        print(f"#   sync: {msg}", flush=True)
+    for j, (q, s_, k, m) in enumerate(rec.calls):
+        check(q, s_, k, m, f"{label}, launch {j}, recorded inputs")
+    return out, rec, n, syncs, reads
+
+
+def _fpfh_frame(dev, card, bank, launches, check, timings, frames, gen_cfg):
+    """13.1: the FPFH bank and frame at bench width (``_fpfh_phase``)."""
+    import numpy as np
+    import torch
+
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.modelbank.bank import build_bank
+    from tpu_joints_torch.neighbors import bruteforce
+    from tpu_joints_torch.neighbors import pallas_knn as pk
+    from tpu_joints_torch.pipelines.detect import detect_organized
+
+    tab, tab_valid, T_gt, lo, hi = (
+        frames[k] for k in ("tab", "tab_valid", "T", "lo", "hi"))
+    counts = {}
+    fp_cfg = syn.fpfh_config()
+    torch.cuda.synchronize()
+    pk.knnk.launches = 0
+    t0 = time.perf_counter()
+    with _Recorder(bruteforce) as rec:
+        fbank = build_bank(syn.joint_model(), **syn.fpfh_bank_recipe(fp_cfg),
+                           device=dev)
+    torch.cuda.synchronize()
+    fbank_s = time.perf_counter() - t0
+    launches["fpfh bank"] = rec.shapes()
+    counts["fpfh bank"] = (0, 0, pk.knnk.launches)
+    print(f"# phase 13.1 FPFH bank: {fbank.n_views} views, desc "
+          f"{tuple(fbank.desc.shape)}, {int(fbank.key_valid.sum())} valid "
+          f"keys, built in {fbank_s:.2f} s; K2 launched {pk.knnk.launches} "
+          f"times; launches by shape: "
+          f"{dict(sorted(launches['fpfh bank'].items()))} {card}", flush=True)
+    if pk.knnk.launches != fbank.n_views or fbank.desc.shape[-1] != 33:
+        raise RuntimeError("the FPFH bank launched K2 "
+                           f"{pk.knnk.launches} times for {fbank.n_views} "
+                           f"views, or its descriptors are not 33-D")
+    for n, (q, s_, k, m) in enumerate(rec.k2_calls()):
+        check(q, s_, k, m, f"FPFH bank view {n} normals")
+
+    def run_fpfh():
+        return detect_organized(tab, tab_valid, fbank, fp_cfg, block=4,
+                                half_window=5, crop_lo=lo, crop_hi=hi)
+
+    (res, n_sel), rec, n, syncs, reads = _run_counted(
+        "phase 13.1 FPFH frame", run_fpfh, check, card)
+    launches["fpfh"] = rec.shapes()
+    counts["fpfh"] = n
+    if n[0] == 0 or n[1:] != (0, 0) or len(syncs) != reads[0] or reads[0] < 1:
+        raise RuntimeError(f"the FPFH frame launched {n}, read the host "
+                           f"{len(syncs)} times for {reads} region-growing "
+                           f"reads")
+    (res, n_sel), times = _timed_runs(run_fpfh)
+    busy, ops, peak = _device_busy(run_fpfh)
+    pose = res.full_pose.cpu().numpy()
+    rot, trans = _err(pose, T_gt)
+    print(f"# phase 13.1 FPFH 640x480 with table (synthetic.fpfh_config): "
+          f"median {statistics.median(times):.3f} ms (min {min(times):.3f}, "
+          f"max {max(times):.3f}) over {len(times)} runs, n_selected "
+          f"{int(n_sel)}, {int(res.metrics['valid_descriptors'])} valid "
+          f"descriptors, {int(res.metrics['correspondences'])} matches, "
+          f"accepted {bool(res.accepted)}, view {int(res.view_idx)}, rot_err "
+          f"{rot:.3f} deg, trans_err {trans * 1000:.3f} mm; device busy "
+          f"{busy:.3f} ms, {ops} device operations, peak {peak:.1f} MiB, bank "
+          f"{fbank_s:.2f} s {card}", flush=True)
+    ref = FPFH_CPU_JAX
+    print(f"# phase 13.1 the JAX package on the CPU, same frame and bank: "
+          f"accepted {ref['accepted']}, view {ref['view']}, rot_err "
+          f"{ref['rot_deg']:.3f} deg, trans_err {ref['trans_mm']:.3f} mm "
+          f"(on its own bank: {FPFH_CPU_JAX_OWN_BANK}); "
+          f"FPFH's own gate (accepted, < 2 deg, < 5 mm) met on the card: "
+          f"{bool(res.accepted) and rot < 2.0 and trans < 0.005} {card}",
+          flush=True)
+    # the card reproduces the reference's result, and an accepted pose must
+    # pass FPFH's gate
+    if not (np.isfinite(pose).all()
+            and bool(res.accepted) == ref["accepted"]
+            and int(res.view_idx) == ref["view"]
+            and abs(rot - ref["rot_deg"]) < 0.1
+            and abs(trans * 1000 - ref["trans_mm"]) < 1.0):
+        raise RuntimeError(f"phase 13.1 differs from the JAX package's result "
+                           f"on the CPU: accepted {bool(res.accepted)}, view "
+                           f"{int(res.view_idx)}, {rot:.3f} deg, "
+                           f"{trans * 1000:.3f} mm")
+    if bool(res.accepted) and not (rot < 2.0 and trans < 0.005):
+        raise RuntimeError(f"phase 13.1 accepted a pose {rot:.2f} deg, "
+                           f"{trans * 1000:.1f} mm off")
+
+    return counts
+
+
+def _fpfh_options(dev, card, bank, launches, check, timings, frames,
+                  gen_cfg):
+    """13.2: the generic path's options on phase 6's cloud
+    (``_fpfh_phase``)."""
+    import numpy as np
+    import torch
+
+    from tpu_joints_torch.features import normals as fnormals
+    from tpu_joints_torch.features.shot import compute_shot
+    from tpu_joints_torch.neighbors import pallas_knn as pk
+    from tpu_joints_torch.pipelines.detect import detect, prepare_scene
+
+    T_gt, scene = frames["T"], frames["scene"]
+    counts = {}
+    N = scene.capacity
+    anchors = 1024
+    full = fnormals.estimate_normals_anchored(scene, k=16, anchors=N)
+    exact = fnormals.estimate_normals(scene, k=16)
+    if not all(torch.equal(a, b) for a, b in zip(full, exact)):
+        raise RuntimeError("anchored normals with anchors >= capacity differ "
+                           "from estimate_normals")
+    part, rec, n, _, _ = _run_counted(
+        "phase 13.2 anchored normals",
+        lambda: fnormals.estimate_normals_anchored(scene, k=16,
+                                                   anchors=anchors),
+        check, card)
+    new = {(anchors, N, 16): 1, (N, anchors, 1): 1}
+    if dict(rec.shapes()) != new:
+        raise RuntimeError(f"the anchored normals launched "
+                           f"{dict(rec.shapes())}, expected {new}")
+    for shape, label in (((anchors, N, 16), "anchor k-NN"),
+                         ((N, anchors, 1), "nearest anchor")):
+        q, s_, k, m = rec.first(shape)
+        timings[min(k, 2)].append(_time_knn(
+            pk, q, s_, m, k, card, f"phase 13.2 K{min(k, 2)} ({label})"))
+    mask = scene.mask
+    dots = (part[0] * exact[0]).sum(1).abs()[mask].cpu().numpy()
+    print(f"# phase 13.2 anchored normals ({anchors} of {N} lanes) against "
+          f"the exact k = 16 normals: median |cos| {np.median(dots):.6f}, 5% "
+          f"quantile {np.quantile(dots, 0.05):.6f}; anchors >= capacity "
+          f"bit-equal to estimate_normals {card}", flush=True)
+    # tests/test_anchor_normals.py's gate
+    if not (np.median(dots) > 0.999 and np.quantile(dots, 0.05) > 0.98):
+        raise RuntimeError("anchored normals stray from the exact ones")
+    gated = {"normal_anchors": True, "algorithm": True, "rg_backend": True,
+             "keypoints": False}
+    for opt in ({"normal_anchors": anchors}, {"algorithm": "gc"},
+                {"keypoints": "iss"}, {"rg_backend": "voxel"}):
+        cfg = dataclasses.replace(gen_cfg, **opt)
+        name = next(iter(opt))
+        r, rec, n, syncs, reads = _run_counted(
+            f"phase 13.2 detect with {opt}",
+            lambda c=cfg: detect(scene, bank, c), check, card)
+        launches[f"option {name}"] = rec.shapes()
+        counts[f"option {name}"] = n
+        if len(syncs) != sum(reads):
+            raise RuntimeError(f"{opt}: {len(syncs)} host syncs for region-"
+                               f"growing reads {reads}")
+        rot, trans = _err(r.full_pose.cpu().numpy(), T_gt)
+        print(f"# phase 13.2 {opt}: accepted {bool(r.accepted)}, view "
+              f"{int(r.view_idx)}, rot_err {rot:.3f} deg, trans_err "
+              f"{trans * 1000:.3f} mm, keys {int(r.metrics['scene_keypoints'])}"
+              f", scene points after the crop "
+              f"{int(r.metrics['scene_points'])} "
+              f"({'gated' if gated[name] else 'reported'}) {card}", flush=True)
+        if gated[name] and not (bool(r.accepted) and rot < 1.0
+                                and trans < 0.005):
+            raise RuntimeError(f"phase 13.2 {opt} missed the gate")
+    feats = prepare_scene(scene, gen_cfg)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        keys = type(feats.keys)(*(t.to(d) for t in feats.keys))
+        cloud = type(feats.cloud)(*(t.to(d) for t in feats.cloud))
+        out[d.type] = compute_shot(keys, cloud, feats.normals.to(d),
+                                   radius=gen_cfg.descr_rad,
+                                   k_max=gen_cfg.k_max, scheme="pcl")
+    dc, dp = out["cuda"][0].cpu(), out["cpu"][0]
+    diff = (dc - dp).abs().amax(1)
+    print(f"# phase 13.2 SHOT scheme='pcl' on phase 6's {int(feats.keys.mask.sum())} "
+          f"keys: {int(out['cuda'][2].sum())} valid on the card, "
+          f"{int(out['cpu'][2].sum())} on the CPU; max |desc diff| card vs "
+          f"CPU {float(diff.max()):.3e}, rows past 1e-4: "
+          f"{int((diff > 1e-4).sum())} (reported) {card}", flush=True)
+    if not torch.equal(out["cuda"][2].cpu(), out["cpu"][2]):
+        raise RuntimeError("SHOT pcl validity differs between card and CPU")
+
+    return counts
+
+
+def _fpfh_served(dev, card, bank, launches, check, timings, frames,
+                 gen_cfg):
+    """13.3: the ``fpfh_demo`` preset served at 8192 lanes on its own bank
+    (``_fpfh_phase``)."""
+    import numpy as np
+    import torch
+
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.config import PRESETS
+    from tpu_joints_torch.modelbank.bank import build_bank
+    from tpu_joints_torch.neighbors import pallas_knn as pk
+    from tpu_joints_torch.pipelines.detect import detect_organized
+    from tpu_joints_torch.serve import DetectionService
+    from tpu_joints_torch.serve.depth import depth_to_cloud
+    from tpu_joints_torch.serve.server import depth_block
+
+    tab, tab_valid, T_gt = frames["tab"], frames["tab_valid"], frames["T"]
+    counts = {}
+    demo = dataclasses.replace(PRESETS["fpfh_demo"], scene_capacity=8192)
+    t0 = time.perf_counter()
+    dbank = build_bank(
+        syn.joint_model(), descriptor="fpfh", descr_radius=demo.descr_rad,
+        rf_radius=demo.rf_rad, rf_k_max=demo.rf_k_max, frames=demo.rf_frames,
+        sampling_radius=demo.model_ss, normal_k=demo.normal_k,
+        normal_radius=demo.normal_radius, k_max=demo.k_max,
+        fpfh_surface=demo.fpfh_surface, fpfh_k_max=demo.fpfh_k_max,
+        level=1, resolution=128, surface_leaf=0.01, key_capacity=256,
+        icp_capacity=2048, device=dev)
+    torch.cuda.synchronize()
+    print(f"# phase 13.3 fpfh_demo bank (radius normals at "
+          f"{demo.normal_radius}): {dbank.n_views} views, built in "
+          f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
+    svc = DetectionService(dbank, demo)
+    H, W = tab_valid.shape
+    svc.warmup()
+    depth = _depth(tab.cpu().numpy(), tab_valid.cpu().numpy())
+    (status, reply, rt_ms), rec, n, syncs, reads = _run_counted(
+        "phase 13.3 fpfh_demo served", lambda: _serve_one(svc, depth), check,
+        card)
+    launches["served fpfh"] = rec.shapes()
+    counts["served fpfh"] = n
+    seen = set().union(*(set(c) for k, c in launches.items()
+                         if k != "served fpfh"))
+    for shape in sorted(set(rec.shapes()) - seen):     # its own shapes
+        q, s_, k, m = rec.first(shape)
+        timings[min(k, 2)].append(_time_knn(
+            pk, q, s_, m, k, card, f"phase 13.3 K{min(k, 2)} {shape}",
+            reps=5))
+    if status != 200:
+        raise RuntimeError(f"phase 13.3: the server answered {status}: {reply}")
+    xyz = depth_to_cloud(depth)
+    ok = np.isfinite(xyz).all(-1)
+    blk = depth_block(H, W, demo.scene_capacity)
+    ref, _ = detect_organized(torch.as_tensor(np.nan_to_num(xyz), device=dev),
+                              torch.as_tensor(ok, device=dev), dbank, demo,
+                              block=blk, half_window=5)
+    diff = float(np.abs(np.asarray(reply["pose"], np.float32)
+                        - ref.full_pose.cpu().numpy()).max())
+    rot, trans = _err(np.asarray(reply["pose"]), T_gt)
+    print(f"# phase 13.3 fpfh_demo {W}x{H} over HTTP (block {blk}, "
+          f"{demo.scene_capacity} lanes): accepted {reply['accepted']}, view "
+          f"{reply['view_idx']}, rot_err {rot:.3f} deg, trans_err "
+          f"{trans * 1000:.3f} mm (reported), scene points "
+          f"{reply['metrics']['scene_points']}, device call "
+          f"{reply['latency_ms']:.3f} ms, round trip {rt_ms:.3f} ms; max "
+          f"|pose diff| to a direct detect_organized {diff:.3e} {card}",
+          flush=True)
+    if diff > 1e-5:
+        raise RuntimeError(f"the served fpfh_demo reply differs from a direct "
+                           f"run by {diff:.3e}")
+    return counts
+
+
+def _serve_one(service, depth):
+    """One depth request to ``service`` over HTTP: (status, reply, ms)."""
+    with _serving(service) as url:
+        return _post(url, _depth_body(depth))
 
 
 def main() -> None:
@@ -1705,7 +2061,7 @@ def main() -> None:
           f"batch median {med_b:.3f} ms = {med_b / n_batch:.3f} ms per frame "
           f"amortised, single frame median "
           f"{statistics.median(turns['single']):.3f} ms (in turns single, "
-          f"batch, batch, single; 5 runs each); device operations per batch "
+          f"batch, batch, single; 3 runs each); device operations per batch "
           f"{ops_b} against {n_batch} x {ops_1} = {n_batch * ops_1}; device "
           f"busy {busy_b:.3f} ms per batch against {busy_1:.3f} ms per single "
           f"frame; peak {peak_b:.1f} MiB against {peak_1:.1f} MiB {card}",
@@ -1716,7 +2072,13 @@ def main() -> None:
         dev, kind, card, bank, launches, check, check_batched,
         cfgs=dict(det=det_cfg, seg=seg_cfg, hv=hv_cfg, gen=gen_cfg),
         frames=dict(xyz=xyz_h, valid=valid_h, two=two_h, two_valid=two_valid_h,
-                    T=T_gt, T_a=T_a, T_b=T_b, scene=scene))
+                    T=T_gt, T_a=T_a, T_b=T_b, scene=scene), timings=timings)
+
+    # --- phase 13: FPFH, the generic options, fpfh_demo served -------------
+    fpfh_n = _fpfh_phase(
+        dev, card, bank, launches, check, timings,
+        frames=dict(tab=tab_img, tab_valid=tab_valid, T=T_gt, lo=lo, hi=hi,
+                    scene=scene), gen_cfg=gen_cfg)
 
     # --- the paths at small size, card vs CPU ------------------------------
     _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card)
@@ -1743,7 +2105,7 @@ def main() -> None:
         2: {"bank": bank_k2, "organized": org_k2, "generic": gen_k2,
             "segmented": 0, "part banks": parts_k2, "two-part": 0,
             "multi-instance": multi_k2, "hv": hv_k2, "batch": bat_k2}}
-    for path, n in served_n.items():
+    for path, n in {**served_n, **fpfh_n}.items():
         for kk, i in ((1, 0), ("batched", 1), (2, 2)):
             by_path[kk][path] = n[i]
     # "launches": K1 over one batch of 8, its batch mode over the same

@@ -374,3 +374,80 @@ def test_verify_hypotheses_on_card_equals_cpu(H):
         assert added == ((1, 1) if d == "cuda" else (0, 0))
     assert torch.equal(out["cuda"], out["cpu"])
     assert bool(out["cuda"][0]) and not bool(out["cuda"][3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 16, 192])
+def test_exclude_self_never_launches_a_kernel_on_card(k):
+    """``knn(exclude_self=True)`` takes the expansion form on the card at
+    every k (the kernels have no self-exclusion): no launch, own lane never
+    listed, equal to the CPU's indices."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    rng = np.random.default_rng(k)
+    pts = torch.from_numpy(rng.normal(size=(3000, 3)).astype(np.float32))
+    before = (k1.nn1.launches, k1.knnk.launches)
+    d, i = knn(pts.cuda(), pts.cuda(), k, exclude_self=True)
+    assert (k1.nn1.launches, k1.knnk.launches) == before
+    dc, ic = knn(pts, pts, k, exclude_self=True)
+    assert not bool((i.cpu() == torch.arange(3000)[:, None]).any())
+    assert (i.cpu() != ic).float().mean() < 1e-3
+
+
+@pytest.mark.cuda
+def test_anchored_normals_shapes_on_card():
+    """The anchored normals' two launches (K2 at 1024 anchors × 2560, k =
+    16; K1 at 2560 × 1024 anchors) bit-equal to their plain versions, and
+    the normals equal to the CPU's within 1e-5."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.core.cloud import make_cloud
+    from tpu_joints_torch.features.normals import (anchor_lanes,
+                                                   estimate_normals_anchored)
+
+    T = syn.bench_pose()
+    xyz, valid = syn.frame(T, 42, with_table=False)
+    pts = syn.scene_points(xyz[valid], 2560)
+    out = {}
+    for d in ("cuda", "cpu"):
+        cloud = make_cloud(pts, capacity=2560, device=d)
+        out[d] = estimate_normals_anchored(cloud, k=16, anchors=1024)
+    cloud = make_cloud(pts, capacity=2560, device="cuda")
+    a = anchor_lanes(2560, 1024, "cuda")
+    for q, s, kk, m in ((cloud.xyz[a], cloud.xyz, 16, cloud.mask),
+                        (cloud.xyz, cloud.xyz[a], 1, cloud.mask[a])):
+        if kk == 1:
+            (dk, ik), (dr, ir) = k1.nn1(q, s, m), k1.nn1_reference(q, s, m)
+        else:
+            (dk, ik), (dr, ir) = (k1.knnk(q, s, kk, m),
+                                  k1.knnk_reference(q, s, kk, m))
+        assert torch.equal(dk, dr) and torch.equal(ik, ir)
+    for a_, b_ in zip(out["cuda"], out["cpu"]):
+        np.testing.assert_allclose(a_.cpu().numpy(), b_.numpy(), atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fpfh_on_card_equals_cpu():
+    """FPFH-33 of 300 keys over themselves (r = 0.15, 192 neighbours, the
+    sort path) on the card within 2e-3 of the CPU's, validity equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.core.cloud import make_cloud
+    from tpu_joints_torch.features.fpfh import compute_fpfh
+
+    rng = np.random.default_rng(0)
+    T = syn.bench_pose()
+    pts = syn.joint_model(3000, 1800) @ T[:3, :3].T + T[:3, 3]
+    xyz = pts[rng.choice(len(pts), 300, replace=False)].astype(np.float32)
+    nrm = rng.normal(size=(512, 3)).astype(np.float32)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+    out = {}
+    for d in ("cuda", "cpu"):
+        keys = make_cloud(xyz, capacity=512, device=d)
+        n = torch.from_numpy(nrm).to(d)
+        out[d] = compute_fpfh(keys, n, keys, n, radius=0.15, k_max=192)
+    assert torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
+    diff = (out["cuda"][0].cpu() - out["cpu"][0]).abs().amax(1)
+    assert int((diff > 2e-3).sum()) <= 3, diff.max()

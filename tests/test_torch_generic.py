@@ -255,11 +255,18 @@ def test_detect_rejects_foreign_devices_and_unported_options(problem, scene):
     _, tb, _, _, _, tcfg, _, _ = problem
     with pytest.raises(ValueError, match="bank on cpu"):
         tdet.detect(scene, tb, tcfg, viewpoint=torch.zeros(3, device="meta"))
-    for kw, item in (({"keypoints": "lattice"}, "item 15"),
-                     ({"rg_backend": "voxel"}, "item 14"),
-                     ({"keypoints": "iss"}, "item 14"),
-                     ({"normal_radius": 0.1}, "item 12")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(NotImplementedError, match="item 15"):
+        tdet.prepare_scene(scene, dataclasses.replace(tcfg, keypoints="lattice"))
+    # the voxel region growing, ISS keypoints and radius normals are ported
+    # (their parity: tests/test_torch_generic_options.py, test_torch_fpfh.py)
+    for kw in ({"rg_backend": "voxel"}, {"keypoints": "iss"},
+               {"normal_radius": 0.1}):
+        feats = tdet.prepare_scene(scene, dataclasses.replace(tcfg, **kw))
+        assert bool((feats.cloud.mask <= scene.mask).all()), kw
+        assert bool((feats.keys.mask.sum() > 0)), kw
+    for kw, exc in (({"rg_backend": "lattice"}, "rg_backend"),
+                    ({"descriptor": "spin"}, "descriptor")):
+        with pytest.raises(ValueError, match=exc):
             tdet.prepare_scene(scene, dataclasses.replace(tcfg, **kw))
     # the plane removal is ported: the option runs and only ever drops points
     feats = tdet.prepare_scene(scene, dataclasses.replace(

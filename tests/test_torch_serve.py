@@ -625,10 +625,12 @@ def test_detect_depth_segmented_matches_jax(bench_problem):
 
 
 def test_unported_preset_fails_at_warmup(service):
-    """``fpfh_demo`` (FPFH, ROADMAP queue 1 item 12) raises the port's
-    NotImplementedError at warmup, before any request."""
+    """Every preset is ported now (``fpfh_demo`` is served in
+    ``tests/test_torch_fpfh.py``); a preset the bank cannot serve still
+    fails at warmup, before any request: ``fpfh_demo``'s FPFH-33 scene
+    descriptors against this SHOT-352 bank."""
     svc = DetectionService(service.bank, tconfig.PRESETS["fpfh_demo"])
-    with pytest.raises(NotImplementedError, match="item 12"):
+    with pytest.raises(ValueError, match="33-D.*352-D"):
         svc.warmup()
 
 

@@ -1,6 +1,6 @@
 """Per-stage time of the port's detection paths on one CUDA card.
 
-    python -m tpu_joints_torch.breakdown [--runs 10] [--paths organized,generic,segmented,two-part,instances,hv,batch]
+    python -m tpu_joints_torch.breakdown [--runs 10] [--paths organized,generic,segmented,two-part,instances,hv,batch,fpfh]
 
 Builds the 42-view bench bank on the card (and, for the two-part path, the
 two 42-view part banks), then for each path — the organized
@@ -14,8 +14,11 @@ growing, curvature filter + compaction) and the two-part
 (``synthetic.two_part_config``, the 84-view concatenated bank), and, when
 asked for, the two-instance frame with ``synthetic.multi_instance_config``
 (``instances``), the same with the hypothesis verification on (``hv``:
-``synthetic.hv_config``; the verification also alone) and
-``detect_organized_batch`` on the bench's 8 jittered frames (``batch``) —
+``synthetic.hv_config``; the verification also alone),
+``detect_organized_batch`` on the bench's 8 jittered frames (``batch``) and
+the FPFH chain on the frame with the table (``fpfh``: its 42-view bank,
+``synthetic.fpfh_bank_recipe``, built on the card, and
+``synthetic.fpfh_config``, split like the segmented chain) —
 runs its stages one after another, synchronising after each:
 
 * wall ms: median over ``--runs`` warm runs of the host clock around the
@@ -227,6 +230,11 @@ def main() -> None:
     n_batch = 8
     imgs = torch.as_tensor(syn.batch_frames(xyz_h, n_batch), device=dev)
     valids = valid[None].expand(n_batch, -1, -1).contiguous()
+    if "fpfh" in want:
+        fp_cfg = syn.fpfh_config()
+        fbank = build_bank(syn.joint_model(), **syn.fpfh_bank_recipe(fp_cfg),
+                           device=dev)
+        paths.append(("fpfh", fp_cfg, segmented_head(fp_cfg), fbank, 1))
     paths += [("instances", multi_cfg,
                organized_head(two, two_valid, multi_cfg, wlo, whi), bank, 1),
               ("hv", hv_cfg, organized_head(two, two_valid, hv_cfg, wlo, whi),
@@ -236,7 +244,8 @@ def main() -> None:
     for label, c, head, b, n_parts in paths:
         if label not in want:
             continue
-        c = D._strip_crop(c) if label in ("segmented", "two-part") else c
+        c = D._strip_crop(c) if label in ("segmented", "two-part",
+                                          "fpfh") else c
         tail = [
             ("match", lambda c=c, b=b: put(corrs=D.match_bank(
                 s["feats"].desc, s["feats"].desc_valid, b.desc,
@@ -283,6 +292,8 @@ def main() -> None:
                 crop_lo=wlo, crop_hi=whi),
             "batch": lambda: D.detect_organized_batch(imgs, valids, bank,
                                                       org_cfg, **geo),
+            "fpfh": lambda: D.detect_organized(tab, tab_valid, b,
+                                               syn.fpfh_config(), **geo),
         }[label]
         default = lattice.SWEEPS_PER_CHECK
         # the segmented chain also with the lattice region growing never

@@ -80,3 +80,23 @@ def make_cloud(xyz, rgb=None, capacity: Optional[int] = None,
     return Cloud(xyz=torch.as_tensor(xyz_p, device=device),
                  mask=torch.as_tensor(mask, device=device),
                  rgb=torch.as_tensor(rgb_p, device=device))
+
+
+def pad_cloud(cloud: Cloud, capacity: int) -> Cloud:
+    """``cloud`` grown to ``capacity`` lanes of padding."""
+    n = cloud.capacity
+    if capacity < n:
+        raise ValueError(f"cannot shrink cloud capacity {n} -> {capacity}")
+    if capacity == n:
+        return cloud
+    pad = capacity - n
+    return Cloud(xyz=torch.cat([cloud.xyz, cloud.xyz.new_full((pad, 3),
+                                                              SENTINEL)]),
+                 mask=torch.cat([cloud.mask, cloud.mask.new_zeros(pad)]),
+                 rgb=torch.cat([cloud.rgb, cloud.rgb.new_zeros((pad, 3))]))
+
+
+def to_numpy(cloud: Cloud) -> np.ndarray:
+    """The valid points as a compact host array [n, 3]."""
+    mask = cloud.mask.cpu().numpy()
+    return cloud.xyz.cpu().numpy()[mask]

@@ -80,8 +80,9 @@ def segment_sum(values: torch.Tensor, seg: torch.Tensor,
 
 def scatter_add(index: torch.Tensor, values: torch.Tensor,
                 size: int) -> torch.Tensor:
-    """``zeros(size).at[index].add(values)``, deterministically, each slot
-    summed in the order of ``index``'s lanes."""
+    """``zeros(size).at[index].add(values)`` for values [N] or [N, C],
+    deterministically, each slot summed in the order of ``index``'s
+    lanes."""
     order = torch.argsort(index, stable=True)
     si = index[order]
     boundary = torch.ones_like(si, dtype=torch.bool)
@@ -92,6 +93,9 @@ def scatter_add(index: torch.Tensor, values: torch.Tensor,
     # slot of each segment; unused segments point at the dump slot ``size``
     slot = torch.full((n,), size, dtype=torch.int64, device=index.device)
     slot.scatter_(0, seg, si.long())
-    out = torch.zeros(size + 1, dtype=values.dtype, device=values.device)
-    out.scatter_(0, slot, sums)
+    out = values.new_zeros((size + 1,) + values.shape[1:])
+    if values.ndim == 1:
+        out.scatter_(0, slot, sums)
+    else:
+        out.index_copy_(0, slot, sums)
     return out[:size]

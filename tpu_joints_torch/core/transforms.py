@@ -7,13 +7,21 @@ import math
 
 import torch
 
-from tpu_joints_torch.core.cloud import SENTINEL
+from tpu_joints_torch.core.cloud import SENTINEL, Cloud
 from tpu_joints_torch.features.eigen3 import cross, eigh3x3, norm
 
 
 def transform_points(xyz: torch.Tensor, T: torch.Tensor) -> torch.Tensor:
     """Apply a 4x4 rigid transform to [..., 3] points."""
     return xyz @ T[:3, :3].T + T[:3, 3]
+
+
+def transform_cloud(cloud: Cloud, T: torch.Tensor) -> Cloud:
+    """``cloud`` moved by the 4x4 rigid transform ``T``; invalid lanes stay
+    at the sentinel."""
+    xyz = torch.where(cloud.mask[:, None], transform_points(cloud.xyz, T),
+                      SENTINEL)
+    return Cloud(xyz=xyz, mask=cloud.mask, rgb=cloud.rgb)
 
 
 def masked_centroid(xyz: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -160,3 +168,13 @@ def rotation_geodesic_deg(Ra: torch.Tensor, Rb: torch.Tensor) -> torch.Tensor:
     M = Ra.transpose(-1, -2) @ Rb
     c = (M[..., 0, 0] + M[..., 1, 1] + M[..., 2, 2] - 1.0) / 2.0
     return torch.rad2deg(torch.acos(torch.clamp(c, -1.0, 1.0)))
+
+
+def cloud_resolution(xyz: torch.Tensor, mask: torch.Tensor,
+                     nn_dist_sq: torch.Tensor) -> torch.Tensor:
+    """Mean nearest-other-neighbour distance over valid points (the
+    reference's ``computeCloudResolution``); ``nn_dist_sq`` [N] from
+    ``bruteforce.knn(xyz, xyz, 1, exclude_self=True)``."""
+    d = torch.sqrt(torch.clamp_min(nn_dist_sq, 0.0))
+    w = mask.to(d.dtype)
+    return (d * w).sum() / torch.clamp_min(w.sum(), 1.0)

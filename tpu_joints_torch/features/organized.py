@@ -9,10 +9,12 @@ table (f32 SATs lose the mm²-scale covariance to cancellation).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from tpu_joints_torch.features.eigen3 import eigh3x3
 
 
 def _window_sum(a: torch.Tensor, r: int, dim: int) -> torch.Tensor:
@@ -102,3 +104,31 @@ def _cov_from_moments(S: torch.Tensor):
                        torch.stack([cxy, cyy, cyz], -1),
                        torch.stack([cxz, cyz, czz], -1)], dim=-2)
     return cov, torch.stack([mx, my, mz], -1), S[0]
+
+
+def estimate_normals_organized(xyz_img: torch.Tensor, valid: torch.Tensor,
+                               half_window: int = 5,
+                               viewpoint: Optional[torch.Tensor] = None,
+                               depth_change: float = 0.02
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normals + curvature of an organized [H, W, 3] cloud from its
+    edge-shrunken window moments: (normals float32[H, W, 3], curvature
+    float32[H, W]), zero where a pixel's window collapsed on a depth edge
+    or holds fewer than 5 points. Normals face ``viewpoint`` (default the
+    sensor origin)."""
+    if viewpoint is None:
+        viewpoint = torch.zeros(3, dtype=torch.float32, device=xyz_img.device)
+    H, W, _ = xyz_img.shape
+    S, r_px = organized_moments(xyz_img, valid, half_window, depth_change)
+    cov, _, cnt = _cov_from_moments(S.reshape(10, H * W))
+    vals, vecs = eigh3x3(cov)
+    normal = vecs[:, :, 2].reshape(H, W, 3)       # smallest-eigenvalue axis
+    lam = torch.clamp_min(vals, 0.0)
+    tot = lam.sum(1)
+    curvature = torch.where(tot > 1e-20, lam[:, 2] / torch.clamp_min(tot, 1e-20),
+                            0.0).reshape(H, W)
+    flip = (normal * (viewpoint - xyz_img)).sum(-1, keepdim=True) < 0
+    normal = torch.where(flip, -normal, normal)
+    ok = valid & (cnt.reshape(H, W) >= 5.0) & (r_px >= 1)
+    return (torch.where(ok[..., None], normal, 0.0),
+            torch.where(ok, curvature, 0.0))

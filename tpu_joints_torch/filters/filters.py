@@ -1,5 +1,5 @@
-"""Voxel ids, uniform sampling and compaction (counterpart of
-``tpu_joints/filters/filters.py``).
+"""Pass-through crop, voxel ids, voxel downsampling, uniform sampling and
+compaction (counterpart of ``tpu_joints/filters/filters.py``).
 
 Filtering updates masks; voxel aggregation is a stable sort by voxel id plus
 in-order segment reductions (``core.ops.segment_sum``: no float atomics).
@@ -18,6 +18,14 @@ from tpu_joints_torch.core.ops import fused_sumsq, segment_sum
 _GRID_BITS = 10
 _GRID_MAX = (1 << _GRID_BITS) - 1
 _INVALID_ID = 1 << 30
+
+_AXES = {"x": 0, "y": 1, "z": 2}
+
+
+def passthrough(cloud: Cloud, axis: str, lo: float, hi: float) -> Cloud:
+    """Axis-aligned crop, PCL PassThrough (a mask update only)."""
+    a = cloud.xyz[:, _AXES[axis]]
+    return cloud.with_mask((a >= lo) & (a <= hi))
 
 
 def voxel_ids(xyz: torch.Tensor, mask: torch.Tensor, leaf: float) -> torch.Tensor:
@@ -49,6 +57,23 @@ def _segment_min(values: torch.Tensor, seg: torch.Tensor, n: int,
                  init) -> torch.Tensor:
     out = torch.full((n,), init, dtype=values.dtype, device=values.device)
     return out.scatter_reduce(0, seg, values, "amin", include_self=True)
+
+
+def voxel_downsample(cloud: Cloud, leaf: float) -> Cloud:
+    """Voxel-grid downsample (PCL VoxelGrid): one centroid per occupied
+    voxel, in voxel-id order in a prefix of the lanes; capacity unchanged,
+    the rest masked padding."""
+    N = cloud.capacity
+    order, seg = _sorted_segments(voxel_ids(cloud.xyz, cloud.mask, leaf))
+    w = cloud.mask[order].to(torch.float32)
+    sums = segment_sum(cloud.xyz[order] * w[:, None], seg, N)
+    rgb_sums = segment_sum(cloud.rgb[order] * w[:, None], seg, N)
+    cnts = segment_sum(w, seg, N)
+    valid = cnts > 0
+    denom = torch.clamp_min(cnts, 1.0)[:, None]
+    return Cloud(xyz=torch.where(valid[:, None], sums / denom, SENTINEL),
+                 mask=valid,
+                 rgb=torch.where(valid[:, None], rgb_sums / denom, 0.0))
 
 
 def uniform_sample_mask(cloud: Cloud, radius: float) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """Descriptor bank: build, load, save (counterpart of
-``tpu_joints/modelbank/bank.py``; SHOT descriptors with SHOT or BOARD
-voting frames).
+``tpu_joints/modelbank/bank.py``; SHOT-352 or FPFH-33 descriptors with SHOT
+or BOARD voting frames).
 
-The bank is stacked padded tensors — [V, Mk, 352] descriptors, [V, Mk, 3]
+The bank is stacked padded tensors — [V, Mk, D] descriptors (D = 352 or
+33 by the descriptor), [V, Mk, 3]
 keypoints, [V, Mk, 3, 3] frames, [V, 4, 4] poses — on one device, so the
 matcher compares a scene with every view in one product. ``.npz`` files
 use the reference's layout, so a bank built or saved by the JAX package
@@ -20,8 +21,10 @@ import torch
 
 from tpu_joints_torch.core.cloud import (Cloud, bucket_size, card_device,
                                          make_cloud)
-from tpu_joints_torch.features.lrf import board_lrf
-from tpu_joints_torch.features.normals import estimate_normals
+from tpu_joints_torch.features.fpfh import compute_fpfh
+from tpu_joints_torch.features.lrf import board_lrf, shot_lrf
+from tpu_joints_torch.features.normals import (estimate_normals,
+                                               estimate_normals_radius)
 from tpu_joints_torch.features.shot import compute_shot
 from tpu_joints_torch.filters.filters import compact_cloud, uniform_sample_mask
 from tpu_joints_torch.modelbank.scanner import render_views
@@ -67,6 +70,16 @@ class ModelBank:
         out = {k: getattr(self, k).cpu().numpy() for k in _ARRAYS}
         out["params_hash"] = np.asarray(self.params_hash)
         return out
+
+
+def gather_views(bank: ModelBank, idx) -> ModelBank:
+    """Sub-bank of the view indices ``idx``: the per-view tensors gathered
+    along the view axis, the full CAD and the metadata shared."""
+    idx = torch.as_tensor(idx, device=bank.device).long()
+    per_view = ("view_xyz", "view_mask", "key_xyz", "key_valid", "desc", "rf",
+                "poses", "icp_xyz", "icp_mask")
+    return dataclasses.replace(bank, **{k: getattr(bank, k)[idx]
+                                        for k in per_view})
 
 
 def _params_hash(params: dict) -> str:
@@ -130,6 +143,8 @@ def build_bank(
     normal_k: int = 40,
     normal_radius: float = 0.0,
     k_max: int = 128,
+    fpfh_surface: str = "cloud",
+    fpfh_k_max: int = 0,
     level: int = 1,
     resolution: int = 100,
     view_capacity: Optional[int] = None,
@@ -139,16 +154,20 @@ def build_bank(
     poses: Optional[np.ndarray] = None,
     device="cuda",
 ) -> ModelBank:
-    """Render views of a CAD point set and compute its SHOT bank on
+    """Render views of a CAD point set and compute its descriptor bank on
     ``device`` (the card unless asked otherwise) — the reference's prep
-    chain (kNN normals, uniform-sampled keypoints, SHOT, voting frames of
-    kind ``frames``). Arguments as in the reference; ``surface_leaf``
-    downsamples each view before features."""
+    chain: normals (kNN, or radius with ``normal_radius > 0``),
+    uniform-sampled keypoints, SHOT or FPFH descriptors (FPFH over the
+    keypoints themselves with ``fpfh_surface="keys"``, or over the view,
+    gathering ``fpfh_k_max`` neighbours, 0 = ``k_max``), and voting frames
+    of kind ``frames`` (for SHOT with SHOT frames, its own). Arguments as in
+    the reference; ``surface_leaf`` downsamples each view before
+    features."""
     device = card_device(device)
-    if descriptor != "shot":
-        raise NotImplementedError(f"descriptor {descriptor!r} is not ported yet")
-    if normal_radius > 0.0:
-        raise NotImplementedError("radius normals are not ported yet")
+    if descriptor not in ("shot", "fpfh"):
+        raise ValueError(f"unknown descriptor {descriptor!r}")
+    if descriptor == "fpfh" and fpfh_surface not in ("keys", "cloud"):
+        raise ValueError(f"unknown fpfh_surface {fpfh_surface!r}")
     if frames not in ("shot", "board"):
         raise ValueError(f"unknown frames {frames!r}")
     if rf_radius is None:
@@ -169,19 +188,36 @@ def build_bank(
             sel = uniform_sample_mask(cloud_full, surface_leaf)
             cloud, _ = compact_cloud(cloud_full, sel, view_capacity)
         cloud = _prefix(cloud)
-        normals, _ = estimate_normals(cloud, k=normal_k)
+        if normal_radius > 0.0:
+            normals, _ = estimate_normals_radius(cloud, radius=normal_radius,
+                                                 k_max=k_max)
+        else:
+            normals, _ = estimate_normals(cloud, k=normal_k)
         keep = uniform_sample_mask(cloud, sampling_radius)
         keys, kidx = compact_cloud(cloud, keep, key_capacity)
-        desc, rf, valid = compute_shot(keys, cloud, normals,
-                                       radius=descr_radius, k_max=k_max)
-        if frames == "board":
+        if descriptor == "shot":
+            desc, rf, valid = compute_shot(keys, cloud, normals,
+                                           radius=descr_radius, k_max=k_max)
+        else:
+            surface, surface_normals = ((keys, normals[kidx])
+                                        if fpfh_surface == "keys"
+                                        else (cloud, normals))
+            desc, valid = compute_fpfh(keys, normals[kidx], surface,
+                                       surface_normals, radius=descr_radius,
+                                       k_max=fpfh_k_max or k_max)
+        if descriptor != "shot" or frames != "shot":
+            # the voting frames' radius must equal the scene side's rf_rad
             nidx, nwithin, _ = radius_neighbors(
                 keys.xyz, cloud.xyz, rf_radius, max(k_max, rf_k_max),
                 source_mask=cloud.mask)
             nidx = nidx.long()
-            rf, rf_ok = board_lrf(keys.xyz, normals[kidx], cloud.xyz[nidx],
-                                  normals[nidx], nwithin & keys.mask[:, None],
-                                  rf_radius)
+            nvalid = nwithin & keys.mask[:, None]
+            if frames == "board":
+                rf, rf_ok = board_lrf(keys.xyz, normals[kidx], cloud.xyz[nidx],
+                                      normals[nidx], nvalid, rf_radius)
+            else:
+                rf, rf_ok = shot_lrf(keys.xyz, cloud.xyz[nidx], nvalid,
+                                     rf_radius)
             valid = valid & rf_ok
         cols["view_xyz"].append(cloud_full.xyz)
         cols["view_mask"].append(cloud_full.mask)

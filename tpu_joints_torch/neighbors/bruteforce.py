@@ -13,6 +13,11 @@ batch axis on every argument, entry b searching entry b's sources (what
 ``jax.vmap`` of the JAX function computes): k = 1 in 3-D is one launch of
 K1's batch mode, 2 <= k <= 32 in 3-D ``knn`` per entry (K2 has no batch
 mode), k > 32 or D != 3 the expansion form as one batched product.
+
+``exclude_self=True`` (the query is a prefix-aligned view of the source;
+source column i is never a neighbour of query row i, PCL's "nearest other
+point") always takes the expansion form: the kernels have no
+self-exclusion, and the JAX package sends such searches to XLA too.
 """
 from __future__ import annotations
 
@@ -30,18 +35,26 @@ from tpu_joints_torch.neighbors.pallas_knn import (INF, MAX_K, knnk, nn1,
 _ROWS = 2048
 
 
+def _drop_self(d: torch.Tensor, r: int) -> torch.Tensor:
+    """Distances of query rows r, r+1, ... with source column == row at INF."""
+    rows = torch.arange(r, r + d.shape[-2], device=d.device)
+    cols = torch.arange(d.shape[-1], device=d.device)
+    return torch.where(cols[None, :] == rows[:, None], INF, d)
+
+
 def knn(query: torch.Tensor, source: torch.Tensor, k: int,
-        source_mask: Optional[torch.Tensor] = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """k nearest valid source points per query row.
+        source_mask: Optional[torch.Tensor] = None,
+        exclude_self: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """k nearest valid source points per query row; ``exclude_self`` drops
+    source i for query row i (see the module docstring).
 
     Returns (dist_sq float32[M, k], idx int32[M, k]).
     """
     M, D = query.shape
     N = source.shape[0]
-    if k == 1 and D == 3:
+    if k == 1 and D == 3 and not exclude_self:
         return nn1(query, source, source_mask)
-    if 2 <= k <= MAX_K and D == 3:
+    if 2 <= k <= MAX_K and D == 3 and not exclude_self:
         return knnk(query, source, k, source_mask)
     if source_mask is None:
         source_mask = torch.ones(N, dtype=torch.bool, device=source.device)
@@ -58,6 +71,8 @@ def knn(query: torch.Tensor, source: torch.Tensor, k: int,
         d = q2 + s2[None, :] - 2.0 * (q @ source.T)
         d = torch.clamp_min(d, 0.0)
         d = torch.where(source_mask[None, :], d, INF)
+        if exclude_self:
+            d = _drop_self(d, r)
         v, i = torch.sort(d, dim=1, stable=True)
         ds.append(v[:, :kk])
         js.append(i[:, :kk])
@@ -71,7 +86,8 @@ def knn(query: torch.Tensor, source: torch.Tensor, k: int,
 
 
 def knn_batched(query: torch.Tensor, source: torch.Tensor, k: int,
-                source_mask: Optional[torch.Tensor] = None
+                source_mask: Optional[torch.Tensor] = None,
+                exclude_self: bool = False
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """k nearest valid sources of batch entry b per row of ``query[b]``:
     query [B, M, D], source [B, N, D], source_mask bool[B, N] → (dist_sq
@@ -86,9 +102,9 @@ def knn_batched(query: torch.Tensor, source: torch.Tensor, k: int,
     """
     B, M, D = query.shape
     N = source.shape[1]
-    if k == 1 and D == 3:
+    if k == 1 and D == 3 and not exclude_self:
         return nn1_batched(query, source, source_mask)
-    if 2 <= k <= MAX_K and D == 3:
+    if 2 <= k <= MAX_K and D == 3 and not exclude_self:
         masks = [None] * B if source_mask is None else source_mask
         per = [knn(q, s, k, source_mask=m)
                for q, s, m in zip(query, source, masks)]
@@ -105,6 +121,8 @@ def knn_batched(query: torch.Tensor, source: torch.Tensor, k: int,
             - 2.0 * torch.bmm(q, source.transpose(1, 2))
         d = torch.clamp_min(d, 0.0)
         d = torch.where(source_mask[:, None, :], d, INF)
+        if exclude_self:
+            d = _drop_self(d, r)
         v, i = torch.sort(d, dim=2, stable=True)
         ds.append(v[:, :, :kk])
         js.append(i[:, :, :kk])
@@ -118,14 +136,17 @@ def knn_batched(query: torch.Tensor, source: torch.Tensor, k: int,
 
 
 def radius_neighbors(query: torch.Tensor, source: torch.Tensor, radius: float,
-                     k_max: int, source_mask: Optional[torch.Tensor] = None
+                     k_max: int, source_mask: Optional[torch.Tensor] = None,
+                     exclude_self: bool = False
                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The ``k_max`` nearest points inside ``radius``; with a leading
-    batch axis on every argument, per batch entry.
+    batch axis on every argument, per batch entry. ``exclude_self`` as in
+    :func:`knn`.
 
     Returns (idx int32[M, k_max], valid bool[M, k_max], dist_sq f32[M, k_max]).
     """
     search = knn_batched if query.ndim == 3 else knn
-    d, i = search(query, source, k_max, source_mask=source_mask)
+    d, i = search(query, source, k_max, source_mask=source_mask,
+                  exclude_self=exclude_self)
     r = np.float32(radius)
     return i, d <= float(r * r), d

@@ -45,8 +45,8 @@ MAX_K = 32                      # K2's largest k (the TPU kernel's range)
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-# query rows per block of the plain K1: bounds its [rows, N] temporaries
-_ROWS = 4096
+# elements per [rows, N] block of the plain K1 (two such buffers live)
+_NN1_ELEMS = 1 << 25
 # elements per [rows, N] block of the plain K2 (its sort keeps several)
 _BLOCK_ELEMS = 1 << 24
 _NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
@@ -197,13 +197,24 @@ def _penalty(source_mask: torch.Tensor) -> torch.Tensor:
     return torch.where(source_mask, 0.0, INF).to(torch.float32)
 
 
-def _difference_form(q: torch.Tensor, source: torch.Tensor,
-                     pen: torch.Tensor) -> torch.Tensor:
-    """[rows, N] ((dx²+dy²)+dz²)+pen, rounded op by op like the kernels."""
-    dx = q[:, 0:1] - source[:, 0]
-    dy = q[:, 1:2] - source[:, 1]
-    dz = q[:, 2:3] - source[:, 2]
-    return dx * dx + dy * dy + dz * dz + pen
+def _columns(source: torch.Tensor):
+    """The x, y, z columns of ``source`` [N, 3], each contiguous."""
+    return tuple(source[:, c].contiguous() for c in range(3))
+
+
+def _difference_form(q: torch.Tensor, cols, pen: torch.Tensor) -> torch.Tensor:
+    """[rows, N] ((dx²+dy²)+dz²)+pen, rounded op by op like the kernels,
+    over the source columns ``cols`` (``_columns``); in place, in one
+    [rows, N] buffer and one scratch."""
+    d = q[:, 0:1] - cols[0]
+    d.mul_(d)
+    t = q[:, 1:2] - cols[1]
+    t.mul_(t)
+    d.add_(t)
+    torch.sub(q[:, 2:3], cols[2], out=t)
+    t.mul_(t)
+    d.add_(t)
+    return d.add_(pen)
 
 
 def nn1_reference(query: torch.Tensor, source: torch.Tensor,
@@ -212,9 +223,11 @@ def nn1_reference(query: torch.Tensor, source: torch.Tensor,
     """Plain PyTorch version of K1, op by op the same arithmetic."""
     source_mask = _check("nn1", query, source, source_mask)
     pen = _penalty(source_mask)
+    cols = _columns(source)
+    rows = max(1, _NN1_ELEMS // max(source.shape[0], 1))
     ds, js = [], []
-    for r in range(0, query.shape[0], _ROWS):
-        v, a = _difference_form(query[r:r + _ROWS], source, pen).min(dim=1)
+    for r in range(0, query.shape[0], rows):
+        v, a = _difference_form(query[r:r + rows], cols, pen).min(dim=1)
         ds.append(v)                 # first index of the minimum
         js.append(a)
     if not ds:
@@ -287,9 +300,10 @@ def knnk_reference(query: torch.Tensor, source: torch.Tensor, k: int,
     M, N = query.shape[0], source.shape[0]
     kk = min(k, N)
     rows = max(1, _BLOCK_ELEMS // N)
+    cols = _columns(source)
     ds, js = [], []
     for r in range(0, M, rows):
-        d = _difference_form(query[r:r + rows], source, pen)
+        d = _difference_form(query[r:r + rows], cols, pen)
         v, a = torch.sort(d, dim=1, stable=True)
         ds.append(v[:, :kk])
         js.append(a[:, :kk])

@@ -5,14 +5,17 @@ Two entry points share everything after the scene features:
 * ``detect_organized`` — raw organized frame → ingest (tile select +
   moment normals [+ the crop chain on the tile lattice: RANSAC plane
   removal, lattice region growing, per-cluster curvature filter]) →
-  uniform keypoints → one shared k_max radius gather → SHOT + BOARD frames;
+  uniform keypoints → SHOT (one shared k_max radius gather with the BOARD
+  frames) or FPFH-33 (over the keys or the scene) → voting frames;
 * ``detect`` — an unorganized cloud (the CLI's file-driven flow) → kNN
-  normals (kernel K2) → [RANSAC plane removal] → [region-growing crop over
-  a K2 kNN graph + per-cluster curvature filter] → the same keypoints and
+  normals (kernel K2; or radius, or anchored: K2 + K1) → [RANSAC plane
+  removal] → [region-growing crop over a K2 kNN graph or a voxel lattice +
+  per-cluster curvature filter] → uniform or ISS keypoints → the same
   features;
 
 then match against every bank view in one product (1-NN gate or 2-NN
-ratio) → Hough per view → view-grouped or peak-grouped candidate cut (per
+ratio) → Hough or geometric-consistency grouping per view →
+view-grouped or peak-grouped candidate cut (per
 part, when the bank's view axis concatenates several part banks) → two-tier
 ICP (kernel K1) → [global hypothesis verification, ``recognize/hv.py``] →
 coverage-dominant ranking + coverage gate → composed pose + OBB (of the
@@ -33,9 +36,10 @@ host facts about the bank (``ModelBank.has_model``), and indexing with a
 computed index goes through gathers, so the only host synchronisations are
 those of the region growing, which reads its convergence flag once every 8
 sweeps: the lattice one (``segment/organized.py``) in ``detect_organized``
-with ``cfg.segment_scene``, the graph one (``segment/region_growing.py``)
-in ``detect``'s crop and in the clustered OBB (on a batch, those reads
-happen per frame). ``detect_organized`` without the crop chain never
+with ``cfg.segment_scene``, the graph or voxel one
+(``segment/region_growing.py``, ``segment/voxel.py``) in ``detect``'s crop
+and the graph one in the clustered OBB (on a batch, those reads happen per
+frame). ``detect_organized`` without the crop chain never
 synchronises.
 """
 from __future__ import annotations
@@ -50,14 +54,20 @@ from tpu_joints_torch.config import DetectionConfig
 from tpu_joints_torch.core.cloud import SENTINEL, Cloud
 from tpu_joints_torch.core.ops import top_k
 from tpu_joints_torch.core.transforms import compose, invert_rigid
-from tpu_joints_torch.features.lrf import board_lrf
-from tpu_joints_torch.features.normals import estimate_normals
+from tpu_joints_torch.features.fpfh import compute_fpfh
+from tpu_joints_torch.features.iss import iss_keypoints
+from tpu_joints_torch.features.lrf import board_lrf, shot_lrf
+from tpu_joints_torch.features.normals import (estimate_normals,
+                                               estimate_normals_anchored,
+                                               estimate_normals_radius)
 from tpu_joints_torch.features.shot import compute_shot
-from tpu_joints_torch.filters.filters import compact_cloud, uniform_sample_mask
+from tpu_joints_torch.filters.filters import (compact_cloud, gather_lanes,
+                                              uniform_sample_mask)
 from tpu_joints_torch.modelbank.bank import ModelBank
 from tpu_joints_torch.neighbors.bruteforce import radius_neighbors
 from tpu_joints_torch.pipelines.ingest import (ingest_organized_blocks,
                                                ingest_organized_segmented)
+from tpu_joints_torch.recognize.gc import gc_group
 from tpu_joints_torch.recognize.hough import Instances, hough_group
 from tpu_joints_torch.recognize.hv import verify_hypotheses
 from tpu_joints_torch.recognize.icp import icp_multi, scene_coverage_multi
@@ -67,6 +77,7 @@ from tpu_joints_torch.recognize.obb import (OBB, oriented_bounding_box,
 from tpu_joints_torch.segment.region_growing import (cluster_curvature_filter,
                                                      region_growing)
 from tpu_joints_torch.segment.sac import dominant_plane
+from tpu_joints_torch.segment.voxel import region_growing_voxel
 
 _BIG = 3.0e38
 
@@ -118,51 +129,63 @@ def prepare_scene(scene: Cloud, cfg: DetectionConfig,
                   normals: Optional[torch.Tensor] = None,
                   curvature: Optional[torch.Tensor] = None,
                   key_select: Optional[torch.Tensor] = None) -> SceneFeatures:
-    """Normals → [region-growing crop] → keypoints → SHOT + voting frames,
-    sharing one radius gather when descriptor and frames use the same
+    """Normals → [plane removal] → [region-growing crop] → keypoints →
+    descriptors (SHOT, or FPFH over the keys or the scene) + voting frames,
+    sharing one radius gather when SHOT and BOARD frames use the same
     radius and width.
 
-    Pass ``normals``/``curvature`` to skip the kNN estimate (the organized
-    ingest computes them on the sensor grid); ``key_select`` (bool[N])
-    replaces the uniform keypoint sampler.
+    Pass ``normals``/``curvature`` to skip the estimate (the organized
+    ingest computes them on the sensor grid); else they come from the radius
+    support (``cfg.normal_radius > 0``), an anchor subsample
+    (``cfg.normal_anchors > 0``) or the k nearest. ``key_select`` (bool[N])
+    replaces the keypoint detector (uniform sampling, or ISS).
     """
-    if cfg.descriptor != "shot":
-        raise NotImplementedError(
-            f"descriptor {cfg.descriptor!r} is not ported yet (ROADMAP "
-            "queue 1 item 12)")
+    if cfg.descriptor not in ("shot", "fpfh"):
+        raise ValueError(f"unknown descriptor {cfg.descriptor!r}")
     if scene.xyz.ndim == 3:
         return _prepare_scene_batch(scene, cfg, normals, curvature, key_select)
     if normals is None or curvature is None:
         if cfg.normal_radius > 0.0:
-            raise NotImplementedError("radius normals are not ported yet "
-                                      "(ROADMAP queue 1 item 12)")
-        if cfg.normal_anchors > 0:
-            raise NotImplementedError("anchored normals are not ported yet "
-                                      "(ROADMAP queue 1 item 14)")
-        normals, curvature = estimate_normals(scene, k=cfg.normal_k,
-                                              viewpoint=viewpoint)
+            normals, curvature = estimate_normals_radius(
+                scene, radius=cfg.normal_radius, k_max=cfg.k_max,
+                viewpoint=viewpoint)
+        elif cfg.normal_anchors > 0:
+            normals, curvature = estimate_normals_anchored(
+                scene, k=cfg.normal_k, anchors=cfg.normal_anchors,
+                viewpoint=viewpoint)
+        else:
+            normals, curvature = estimate_normals(scene, k=cfg.normal_k,
+                                                  viewpoint=viewpoint)
     if cfg.remove_plane:
         scene = scene.with_mask(scene.mask & ~dominant_plane(
             scene, normals, cfg.plane_dist, cfg.plane_min_fraction))
     if cfg.segment_scene:
         if cfg.rg_backend == "voxel":
-            raise NotImplementedError("the voxel region growing is not ported "
-                                      "yet (ROADMAP queue 1 item 14)")
-        if cfg.rg_backend != "graph":
+            clusters = region_growing_voxel(
+                scene, normals, curvature,
+                leaf=cfg.rg_voxel_leaf or 2.0 * cfg.scene_ss,
+                grid=cfg.rg_voxel_grid, smoothness_deg=cfg.rg_smoothness_deg,
+                curvature_threshold=cfg.rg_curvature,
+                min_cluster_size=cfg.rg_min_cluster, pitch=cfg.rg_voxel_pitch)
+        elif cfg.rg_backend == "graph":
+            clusters = region_growing(
+                scene, normals, curvature, k=min(30, cfg.normal_k),
+                smoothness_deg=cfg.rg_smoothness_deg,
+                curvature_threshold=cfg.rg_curvature,
+                min_cluster_size=cfg.rg_min_cluster, max_edge=cfg.rg_max_edge)
+        else:
             raise ValueError(f"unknown rg_backend {cfg.rg_backend!r}")
-        clusters = region_growing(
-            scene, normals, curvature, k=min(30, cfg.normal_k),
-            smoothness_deg=cfg.rg_smoothness_deg,
-            curvature_threshold=cfg.rg_curvature,
-            min_cluster_size=cfg.rg_min_cluster, max_edge=cfg.rg_max_edge)
         scene = scene.with_mask(cluster_curvature_filter(
             clusters, curvature, scene.mask, cfg.cluster_max_curvature))
 
     if key_select is not None:
         keep = key_select & scene.mask
     elif cfg.keypoints == "iss":
-        raise NotImplementedError("ISS keypoints are not ported yet (ROADMAP "
-                                  "queue 1 item 14)")
+        # the reference's ISS radii, parameterised off scene_ss
+        keep = iss_keypoints(
+            scene, salient_radius=3.0 * cfg.scene_ss,
+            non_max_radius=2.0 * cfg.scene_ss, gamma_21=cfg.iss_gamma_21,
+            gamma_32=cfg.iss_gamma_32, k_max=cfg.k_max)
     elif cfg.keypoints == "lattice":
         raise NotImplementedError("lattice keypoints are not ported yet "
                                   "(ROADMAP queue 1 item 15)")
@@ -170,15 +193,21 @@ def prepare_scene(scene: Cloud, cfg: DetectionConfig,
         keep = uniform_sample_mask(scene, cfg.scene_ss)
     keys, kidx = compact_cloud(scene, keep, cfg.scene_key_capacity)
     shared = None
-    if (cfg.rf_frames == "board" and cfg.rf_rad == cfg.descr_rad
-            and cfg.rf_k_max == cfg.k_max):
+    if (cfg.descriptor == "shot" and cfg.rf_frames == "board"
+            and cfg.rf_rad == cfg.descr_rad and cfg.rf_k_max == cfg.k_max):
         sidx, swithin, _ = radius_neighbors(keys.xyz, scene.xyz, cfg.descr_rad,
                                             cfg.k_max, source_mask=scene.mask)
         shared = (sidx, swithin)
-    desc, rf, valid = compute_shot(keys, scene, normals, radius=cfg.descr_rad,
-                                   k_max=cfg.k_max, neighbors=shared)
-    rf_ok = valid
-    if cfg.rf_frames != "shot":
+    if cfg.descriptor == "shot":
+        desc, rf, valid = compute_shot(keys, scene, normals,
+                                       radius=cfg.descr_rad, k_max=cfg.k_max,
+                                       neighbors=shared)
+        rf_ok = valid
+        need_rf = cfg.rf_frames != "shot"
+    else:
+        desc, valid = _fpfh(keys, kidx, scene, normals, cfg)
+        need_rf = True
+    if need_rf:
         if shared is not None:
             nidx, nwithin = shared
         else:
@@ -190,19 +219,38 @@ def prepare_scene(scene: Cloud, cfg: DetectionConfig,
         if cfg.rf_frames == "board":
             rf, rf_ok = board_lrf(keys.xyz, normals[kidx], scene.xyz[nidx],
                                   normals[nidx], nvalid, cfg.rf_rad)
+        elif cfg.rf_frames == "shot":
+            rf, rf_ok = shot_lrf(keys.xyz, scene.xyz[nidx], nvalid, cfg.rf_rad)
         else:
             raise ValueError(f"unknown rf_frames {cfg.rf_frames!r}")
     return SceneFeatures(cloud=scene, normals=normals, keys=keys, desc=desc,
                          desc_valid=valid, rf=rf, rf_ok=rf_ok)
 
 
+def _fpfh(keys: Cloud, kidx: torch.Tensor, scene: Cloud,
+          normals: torch.Tensor, cfg: DetectionConfig):
+    """FPFH-33 of the keypoints (one scene or a batch): over the keypoint
+    cloud itself (``fpfh_surface="keys"``, the reference's FPFH_demo) or
+    over the scene, gathering ``fpfh_k_max`` neighbours (0 = ``k_max``)."""
+    key_normals = gather_lanes(normals, kidx)
+    if cfg.fpfh_surface == "keys":
+        surface, surface_normals = keys, key_normals
+    elif cfg.fpfh_surface == "cloud":
+        surface, surface_normals = scene, normals
+    else:
+        raise ValueError(f"unknown fpfh_surface {cfg.fpfh_surface!r}")
+    return compute_fpfh(keys, key_normals, surface, surface_normals,
+                        radius=cfg.descr_rad, k_max=cfg.fpfh_k_max or cfg.k_max)
+
+
 def _prepare_scene_batch(scene: Cloud, cfg: DetectionConfig, normals,
                          curvature, key_select) -> SceneFeatures:
     """``prepare_scene`` for B ingested frames (scene [B, N, 3], normals
     [B, N, 3] from the organized front end; no crop): the keypoint sampler
-    and the compaction run over the batch, the support gather is one
-    batched search, and SHOT and the voting frames, which work row by row,
-    take the B·Ms keypoints as rows over the B·N scene lanes."""
+    and the compaction run over the batch, each support gather is one
+    batched search, SHOT and the voting frames, which work row by row, take
+    the B·Ms keypoints as rows over the B·N scene lanes, and FPFH takes the
+    batch axis whole (each frame's surface its own)."""
     if (normals is None or curvature is None or cfg.remove_plane
             or cfg.segment_scene or key_select is not None
             or cfg.keypoints != "uniform"):
@@ -225,20 +273,27 @@ def _prepare_scene_batch(scene: Cloud, cfg: DetectionConfig, normals,
     flat = Cloud(*(t.reshape(B * N, *t.shape[2:]) for t in scene))
     flat_normals = normals.reshape(B * N, 3)
     shared = None
-    if (cfg.rf_frames == "board" and cfg.rf_rad == cfg.descr_rad
-            and cfg.rf_k_max == cfg.k_max):
+    if (cfg.descriptor == "shot" and cfg.rf_frames == "board"
+            and cfg.rf_rad == cfg.descr_rad and cfg.rf_k_max == cfg.k_max):
         shared = support(cfg.descr_rad, cfg.k_max)
-    desc, rf, valid = compute_shot(
-        rows, flat, flat_normals, radius=cfg.descr_rad, k_max=cfg.k_max,
-        neighbors=shared or support(cfg.descr_rad, cfg.k_max))
-    rf_ok = valid
-    if cfg.rf_frames == "board":
+    if cfg.descriptor == "shot":
+        desc, rf, valid = compute_shot(
+            rows, flat, flat_normals, radius=cfg.descr_rad, k_max=cfg.k_max,
+            neighbors=shared or support(cfg.descr_rad, cfg.k_max))
+        rf_ok = valid
+    else:
+        desc, valid = _fpfh(keys, kidx, scene, normals, cfg)
+    if cfg.descriptor != "shot" or cfg.rf_frames != "shot":
         nidx, nwithin = shared or support(cfg.rf_rad, cfg.rf_k_max)
-        rf, rf_ok = board_lrf(
-            rows.xyz, flat_normals[(kidx + lane0).reshape(-1)], flat.xyz[nidx],
-            flat_normals[nidx], nwithin & rows.mask[:, None], cfg.rf_rad)
-    elif cfg.rf_frames != "shot":
-        raise ValueError(f"unknown rf_frames {cfg.rf_frames!r}")
+        nvalid = nwithin & rows.mask[:, None]
+        if cfg.rf_frames == "board":
+            rf, rf_ok = board_lrf(
+                rows.xyz, flat_normals[(kidx + lane0).reshape(-1)],
+                flat.xyz[nidx], flat_normals[nidx], nvalid, cfg.rf_rad)
+        elif cfg.rf_frames == "shot":
+            rf, rf_ok = shot_lrf(rows.xyz, flat.xyz[nidx], nvalid, cfg.rf_rad)
+        else:
+            raise ValueError(f"unknown rf_frames {cfg.rf_frames!r}")
     return SceneFeatures(
         cloud=scene, normals=normals, keys=keys, desc=desc.reshape(B, Ms, -1),
         desc_valid=valid.reshape(B, Ms), rf=rf.reshape(B, Ms, 3, 3),
@@ -268,6 +323,10 @@ def match_bank(scene_desc: torch.Tensor, scene_valid: torch.Tensor,
     (``scene_desc [B, Ms, D]``) share the one product, [B·Ms, V·Mk]; the
     fields are then [B·V, Ms], the views of frame b at [b·V, (b+1)·V)."""
     V, Mk, D = bank_desc.shape
+    if scene_desc.shape[-1] != D:
+        raise ValueError(
+            f"scene descriptors are {scene_desc.shape[-1]}-D, the bank's "
+            f"{D}-D: build the bank with the configuration's descriptor")
     flat = bank_desc.reshape(V * Mk, D)
     Ms = scene_desc.shape[-2]
     scene_desc = scene_desc.reshape(-1, D)
@@ -299,13 +358,22 @@ def match_bank(scene_desc: torch.Tensor, scene_valid: torch.Tensor,
 
 def _group_all_views(feats: SceneFeatures, bank: ModelBank,
                      corrs: Correspondences, cfg: DetectionConfig) -> Instances:
-    if cfg.algorithm != "hough":
-        raise NotImplementedError(f"algorithm {cfg.algorithm!r} is not ported yet")
+    """Hough voting or geometric-consistency grouping over every view (B
+    frames: the bank's views B times, frame by frame)."""
     key_xyz, rf, key_valid = bank.key_xyz, bank.rf, bank.key_valid
     if feats.keys.xyz.ndim == 3:      # B frames: the bank's views B times
         B = feats.keys.xyz.shape[0]
         key_xyz, rf, key_valid = (t.repeat(B, *[1] * (t.ndim - 1))
                                   for t in (key_xyz, rf, key_valid))
+    if cfg.algorithm == "gc":
+        scene_keys = feats.keys.xyz
+        if scene_keys.ndim == 3:      # every view sees its own frame
+            scene_keys = scene_keys.repeat_interleave(bank.n_views, 0)
+        return gc_group(scene_keys, key_xyz, key_valid, corrs,
+                        gc_size=cfg.cg_size, gc_threshold=cfg.cg_thresh,
+                        max_instances=cfg.max_instances_per_view)
+    if cfg.algorithm != "hough":
+        raise ValueError(f"unknown grouping algorithm {cfg.algorithm!r}")
     return hough_group(
         feats.keys.xyz, feats.rf, feats.rf_ok, key_xyz, rf, key_valid,
         key_valid, corrs,

@@ -132,6 +132,32 @@ def bench_bank_kwargs(cfg) -> dict:
                 icp_capacity=2048)
 
 
+def fpfh_config():
+    """``bench.py``'s ``scene_latency_fpfh`` chain (``FPFH_demo.cpp`` at its
+    own parameters): ``bench_config()`` (crop flags on) with FPFH-33 at
+    r = 0.15 over the keypoint cloud itself, 192 neighbours, the 2-NN ratio
+    gate at τ = 1 and the full 4-iteration tier-1 view budget."""
+    import dataclasses
+
+    return dataclasses.replace(
+        bench_config(), descriptor="fpfh", match_mode="ratio", ratio=1.0,
+        descr_rad=0.15, tier1_view_iterations=4, fpfh_surface="keys",
+        fpfh_k_max=192)
+
+
+def fpfh_bank_recipe(cfg) -> dict:
+    """``build_bank`` arguments of ``bench.py``'s FPFH bank at full size for
+    ``fpfh_config()``: 42 views (level 1) at 128 px, 1 cm descriptor
+    surface, 256 keys, 2048 ICP rows, FPFH over the keys with 192
+    neighbours."""
+    return dict(descriptor="fpfh", descr_radius=cfg.descr_rad,
+                rf_radius=cfg.rf_rad, rf_k_max=cfg.rf_k_max,
+                frames=cfg.rf_frames, sampling_radius=cfg.model_ss,
+                normal_k=cfg.normal_k, k_max=cfg.k_max, fpfh_surface="keys",
+                fpfh_k_max=192, level=1, resolution=128, surface_leaf=0.01,
+                key_capacity=256, icp_capacity=2048)
+
+
 def segmented_config():
     """``bench.py``'s ``scene_latency_segmented`` chain: ``bench_config()``
     (crop flags on) with the full 4-iteration tier-1 view budget — the
