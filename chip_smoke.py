@@ -142,6 +142,36 @@ Phases (any failure raises and the exit code is non-zero):
                normals) served at 8192 lanes: warmup, one table frame over
                HTTP, the reply equal to a direct detect_organized, the
                shapes no other path launches timed (5 calls).
+ 14. the CLI and the last features — 14.1 the command-line flow at full
+               width through tpu_joints_torch.cli: the bench joint written
+               as model.pcd, render (host; 42 views at 100 px), bank
+               --preset shot_demo on the card (42 views, 256 keys), phase
+               6's frame (all valid points) as scene.pcd, detect --preset
+               shot_demo --json once in a subprocess (beside 14.1-14.4's
+               untimed work, collected before any timed run) and once
+               in-process (16384 lanes: graph region growing and clustered
+               box, K2 at 16384), each pose equal to a direct detect() on
+               the card,
+               launches by shape with every launch rechecked, syncs equal to
+               the region growings' reads, median of 3 and device busy, the
+               result held to the JAX package's on the CPU (CLI_CPU_JAX:
+               flag, view, errors within 0.1 deg / 1 mm; an accepted pose
+               within 1 deg / 5 mm of the truth); 14.2 detect --tree 3 on
+               the same files, equal to a direct detect_tree, views matched
+               and time beside 14.1's, held to TREE_CPU_JAX; 14.3 detect
+               with two name=path part banks (phase 8's recipe at the
+               preset's descriptor) on the table frame as a PCD, equal to a
+               direct detect_parts, and scenes --hv --preset
+               shot_hypothesis on both scene files (K1's batch mode
+               rechecked, the GOOD lines printed); 14.4 crop, segment,
+               edges -k 100 / 20 (K2 rechecked) and var-desc on scene.pcd
+               strided to 16384 points, each output equal to a direct call;
+               14.5 detect_organized with lattice keys (key_group 3) on
+               phase 5's and phase 7's frames (key-count band, held to
+               LATTICE_CPU_JAX), phase 11's 8 frames as a batch with lattice
+               keys (each equal to its single run), ingest_organized at
+               640x480 (capacity 32768, leaf 4 mm). Every shape no earlier
+               path launched is timed (5 calls).
 The paths' timed frames are 3 each. Every timing gives the kernel, its plain version and cdist+topk (CUDA
 events and profiler device time) beside the bound and the shape's launches
 per bank build, organized frame and generic frame. The kernels JSON line
@@ -1538,6 +1568,391 @@ def _fpfh_served(dev, card, bank, launches, check, timings, frames,
     return counts
 
 
+# the JAX package on the CPU on phase 14's inputs, loading the port-built
+# bank (scripts/full_size_reference.py cli / lattice): 14.1's detect, 14.2's
+# tree, and 14.5's lattice-key frames
+CLI_CPU_JAX = dict(accepted=False, view=21, rot_deg=179.062, trans_mm=155.514)
+TREE_CPU_JAX = dict(accepted=False, view=21, rot_deg=179.062, trans_mm=155.514)
+LATTICE_CPU_JAX = {
+    "organized": dict(accepted=True, view=28, rot_deg=0.217, trans_mm=0.371),
+    "segmented": dict(accepted=True, view=31, rot_deg=0.134, trans_mm=0.480)}
+
+
+def _held_to(label, res_pose, accepted, view, T_gt, ref, card):
+    """The reference's rule for a result the JAX package computed on the
+    CPU: the same accept flag and view, rotation and translation errors
+    within 0.1 deg / 1 mm of its; an accepted pose within 1 deg / 5 mm of
+    the truth."""
+    import numpy as np
+
+    pose = np.asarray(res_pose, np.float64)
+    rot, trans = _err(pose, T_gt)
+    print(f"# {label}: accepted {accepted}, view {view}, rot_err {rot:.3f} "
+          f"deg, trans_err {trans * 1000:.3f} mm; the JAX package on the "
+          f"CPU: {ref} {card}", flush=True)
+    if not (np.isfinite(pose).all() and pose.shape == (4, 4)
+            and accepted == ref["accepted"] and view == ref["view"]
+            and abs(rot - ref["rot_deg"]) < 0.1
+            and abs(trans * 1000 - ref["trans_mm"]) < 1.0):
+        raise RuntimeError(f"{label} differs from the JAX package's result "
+                           f"on the CPU")
+    if accepted and not (rot < 1.0 and trans < 0.005):
+        raise RuntimeError(f"{label} accepted a pose {rot:.2f} deg, "
+                           f"{trans * 1000:.1f} mm off")
+
+
+def _cli_phase(dev, card, bank, launches, check, check_batched, timings,
+               frames, cfgs):
+    """Phase 14: the CLI's offline → online flow at full width (14.1-14.4)
+    and the lattice keys and the pixel ingest (14.5); see the module
+    docstring. ``frames`` holds phase 5's and 7's frames, phase 11's batch
+    and the truth; ``cfgs`` phase 5's and 7's configurations. Adds each
+    path's launches by shape to ``launches``, times every shape no earlier
+    path launched, and returns each path's (K1, K1 batched, K2) launches."""
+    import io
+    import os
+    import sys
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.cli.main import main as cli
+    from tpu_joints_torch.config import PRESETS
+    from tpu_joints_torch.core.cloud import make_cloud, to_numpy
+    from tpu_joints_torch.core.io import PointData, load_pcd, save_pcd
+    from tpu_joints_torch.features.edges import detect_edges
+    from tpu_joints_torch.features.normals import estimate_normals
+    from tpu_joints_torch.features.variance import compute_variance_descriptor
+    from tpu_joints_torch.filters.filters import (compact_cloud, passthrough,
+                                                  uniform_sample_mask,
+                                                  voxel_downsample)
+    from tpu_joints_torch.modelbank.bank import load_bank, save_bank
+    from tpu_joints_torch.neighbors import pallas_knn as pk
+    from tpu_joints_torch.pipelines import multi
+    from tpu_joints_torch.pipelines.cluster_tree import (detect_tree,
+                                                         make_view_clusters)
+    from tpu_joints_torch.pipelines.detect import (detect, detect_organized,
+                                                   detect_organized_batch)
+    from tpu_joints_torch.pipelines.ingest import ingest_organized
+    from tpu_joints_torch.segment import region_growing as rg
+    from tpu_joints_torch.segment.sac import sac_cylinder, sac_plane
+    from tpu_joints_torch.serve.batching import tree_map
+
+    T_gt = frames["T"]
+    t_phase = time.perf_counter()
+    counts = {}
+    seen = set().union(*(set(n) for n in launches.values()))
+
+    def run_cli(argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli(argv)
+        return buf.getvalue()
+
+    pending = []         # shapes no earlier path launched, timed later
+
+    def counted(path, label, run):
+        out, rec, n, syncs, reads = _run_counted(label, run, check, card)
+        launches[path] = rec.shapes()
+        counts[path] = n
+        for shape in sorted(set(rec.shapes()) - seen, key=str):
+            pending.append((label, shape, rec.first(shape)))
+            seen.add(shape)
+        return out, rec, n, syncs, reads
+
+    def time_pending():
+        for label, shape, (q, s_, k, m) in pending:
+            if len(shape) == 4:
+                timings["batched"].append(_time_nn1_batched(
+                    pk, q.contiguous(), s_, m, card,
+                    f"{label} K1 batched {shape}", reps=5))
+            else:
+                timings[min(k, 2)].append(_time_knn(
+                    pk, q, s_, m, k, card, f"{label} K{min(k, 2)} {shape}",
+                    reps=5))
+        pending.clear()
+
+    def same(label, a, b, tol=0.0):
+        diff = float(np.abs(np.asarray(a, np.float64)
+                            - np.asarray(b, np.float64)).max())
+        print(f"#   {label}: max |diff| {diff:.3e} {card}", flush=True)
+        if not diff <= tol:
+            raise RuntimeError(f"{label} differs by {diff:.3e}")
+
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_cli_")
+    d = work.name
+    proc = None
+    try:
+        # --- 14.1 render, bank, detect --------------------------------------
+        save_pcd(f"{d}/model.pcd", PointData(xyz=syn.joint_model()))
+        t0 = time.perf_counter()
+        out = run_cli(["render", f"{d}/model.pcd", "--out", f"{d}/views"])
+        print(f"# phase 14.1 render (host): {out.strip()} in "
+              f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
+        t0 = time.perf_counter()
+        out, _, n, _, _ = counted("cli bank", "phase 14.1 CLI bank", lambda: run_cli(
+            ["bank", f"{d}/model.pcd", "--out", f"{d}/bank.npz",
+             "--preset", "shot_demo"]))
+        cbank = load_bank(f"{d}/bank.npz", device=dev)
+        print(f"# phase 14.1 bank --preset shot_demo: {out.strip()}; "
+              f"{int(cbank.key_valid.sum())} valid keys, "
+              f"{time.perf_counter() - t0:.2f} s with the rechecks {card}",
+              flush=True)
+        if tuple(cbank.desc.shape) != (42, 256, 352) or n[0] or n[1]:
+            raise RuntimeError(f"the CLI bank is {tuple(cbank.desc.shape)}, "
+                               f"launched {n}")
+        pts = frames["xyz"][frames["valid"]]
+        save_pcd(f"{d}/scene.pcd", PointData(xyz=pts))
+        demo = PRESETS["shot_demo"]
+        argv = ["detect", f"{d}/scene.pcd", "--bank", f"{d}/bank.npz",
+                "--preset", "shot_demo", "--json"]
+        # the subprocess (mostly start-up) runs beside 14.1-14.4's untimed
+        # work and is collected before any timed run
+        t_sub = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-m", "tpu_joints_torch.cli",
+                                 *argv], cwd=Path(__file__).resolve().parent,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+        out, rec, n, syncs, _ = counted(
+            "cli detect", "phase 14.1 CLI detect (in-process)",
+            lambda: run_cli(argv))
+        inproc = json.loads(out.strip().splitlines()[-1])
+        scene = make_cloud(syn.scene_points(pts, demo.scene_capacity),
+                           capacity=demo.scene_capacity, device=dev)
+
+        def run_detect():
+            return detect(scene, cbank, demo)
+
+        rg.region_growing.host_checks = 0
+        res, syncs = _count_syncs(run_detect)
+        reads = rg.region_growing.host_checks
+        print(f"# phase 14.1 CLI: {len(pts)} scene points strided to "
+              f"{int(scene.mask.sum())}; a direct detect: host "
+              f"synchronisations {len(syncs)}, graph region-growing reads "
+              f"{reads} {card}", flush=True)
+        if len(syncs) != reads or reads < 2:
+            raise RuntimeError(f"{len(syncs)} syncs for {reads} reads")
+
+        def same_detect(label, got):
+            same(f"phase 14.1 CLI detect ({label}) against a direct detect",
+                 got["pose"], res.full_pose.cpu().numpy())
+            if got["accepted"] != bool(res.accepted):
+                raise RuntimeError(f"phase 14.1 {label} accept flag differs")
+
+        same_detect("in-process", inproc)
+        _held_to("phase 14.1 CLI detect", res.full_pose.cpu().numpy(),
+                 bool(res.accepted), int(res.view_idx), T_gt, CLI_CPU_JAX,
+                 card)
+
+        # --- 14.2 the cluster tree ------------------------------------------
+        out, *_ = counted("cli tree", "phase 14.2 CLI detect --tree 3",
+                          lambda: run_cli(argv + ["--tree", "3"]))
+        tree = json.loads(out.strip().splitlines()[-1])
+        clusters = make_view_clusters(cbank, n_clusters=3)
+
+        def run_tree():
+            return detect_tree(scene, cbank, clusters, demo)
+
+        res_t = run_tree()
+        same("phase 14.2 CLI detect --tree 3 against a direct detect_tree",
+             tree["pose"], res_t.full_pose.cpu().numpy())
+        _held_to("phase 14.2 CLI detect --tree 3", res_t.full_pose.cpu().numpy(),
+                 bool(res_t.accepted), int(res_t.view_idx), T_gt,
+                 TREE_CPU_JAX, card)
+
+        # --- 14.3 two part banks; the scene loop with GO-HV ----------------
+        # phase 8's recipe (each part's own views, one view capacity, the
+        # full joint as CAD) at the preset's descriptor: phase 8's banks
+        # carry BOARD frames that no CLI preset reads
+        t0 = time.perf_counter()
+        parts = syn.build_part_banks(demo, device=dev, resolution=100)
+        for name, b in parts.items():
+            save_bank(f"{d}/{name}.npz", b)
+        tab = frames["tab"][frames["tab_valid"]]
+        save_pcd(f"{d}/table.pcd", PointData(xyz=tab))
+        print(f"# phase 14.3 part banks {list(parts)} built and saved in "
+              f"{time.perf_counter() - t0:.2f} s {card}", flush=True)
+        argv2 = ["detect", f"{d}/table.pcd", "--bank", f"chord={d}/chord.npz",
+                 "--bank", f"stub={d}/stub.npz", "--preset", "shot_demo",
+                 "--json"]
+        out, *_ = counted("cli two-part", "phase 14.3 CLI detect, two part "
+                          "banks", lambda: run_cli(argv2))
+        two = json.loads(out.strip().splitlines()[-1])
+        tscene = make_cloud(syn.scene_points(tab, demo.scene_capacity),
+                            capacity=demo.scene_capacity, device=dev)
+        loaded = {n: load_bank(f"{d}/{n}.npz", device=dev) for n in parts}
+        mres = multi.detect_parts(tscene, loaded, demo)
+        same("phase 14.3 CLI two-part detect against a direct detect_parts",
+             two["pose"], mres.result.full_pose.cpu().numpy())
+        rot, trans = _err(np.asarray(two["pose"]), T_gt)
+        print(f"# phase 14.3 two-part detect on the table frame: part "
+              f"{two['part']} (direct: {mres.part}), accepted "
+              f"{two['accepted']}, rot_err {rot:.3f} deg, trans_err "
+              f"{trans * 1000:.3f} mm (reported) {card}", flush=True)
+        if two["part"] != mres.part:
+            raise RuntimeError("phase 14.3 picked another part")
+        argv3 = ["scenes", f"{d}/scene.pcd", f"{d}/table.pcd", "--bank",
+                 f"{d}/bank.npz", "--hv", "--preset", "shot_hypothesis"]
+        out, rec, n, _, _ = counted("cli scenes hv", "phase 14.3 CLI scenes "
+                                    "--hv", lambda: run_cli(argv3))
+        for line in out.splitlines():
+            if "GOOD" in line or "verdict" in line or "accepted" in line:
+                print(f"#   {line.strip()} {card}", flush=True)
+        if not any(len(shape) == 4 for shape in rec.shapes()):
+            raise RuntimeError("phase 14.3 scenes --hv launched no K1 batch")
+
+        # --- 14.4 the utilities ---------------------------------------------
+        util = pts[np.linspace(0, len(pts) - 1, 16384).astype(np.int64)]
+        save_pcd(f"{d}/util.pcd", PointData(xyz=util))
+        u = f"{d}/util.pcd"
+        ucloud = make_cloud(util, device=dev)
+        run_cli(["crop", u, "--out", f"{d}/crop.pcd", "--xmin", "-0.1",
+                 "--xmax", "0.1", "--zmin", "0.5", "--zmax", "1.5"])
+        c = passthrough(passthrough(ucloud, "x", -0.1, 0.1), "z", 0.5, 1.5)
+        same("phase 14.4 crop", load_pcd(f"{d}/crop.pcd").xyz, to_numpy(c))
+        run_cli(["segment", u, "--plane_out", f"{d}/plane.pcd",
+                 "--cylinder_out", f"{d}/cyl.pcd"])
+        c = passthrough(ucloud, "z", 0.0, 1.5)
+        nrm, _ = estimate_normals(c, k=50)
+        plane = sac_plane(c, nrm, 0, distance_threshold=0.03)
+        rest = c.with_mask(c.mask & ~plane.inliers)
+        cyl = sac_cylinder(rest, nrm, 0, distance_threshold=0.05,
+                           radius_max=0.1)
+        xyz = c.xyz.cpu().numpy()
+        same("phase 14.4 segment, plane", load_pcd(f"{d}/plane.pcd").xyz,
+             xyz[(plane.inliers & c.mask).cpu().numpy()])
+        same("phase 14.4 segment, cylinder", load_pcd(f"{d}/cyl.pcd").xyz,
+             xyz[(cyl.inliers & rest.mask).cpu().numpy()])
+        for k in (100, 20):
+            path = f"cli edges k{k}"
+            counted(path, f"phase 14.4 CLI edges -k {k}", lambda k=k: run_cli(
+                ["edges", u, "--out", f"{d}/edges{k}.pcd", "-k", str(k)]))
+            k2 = sum(c for shape, c in launches[path].items()
+                     if len(shape) == 3 and shape[2] > 1)
+            if (k2 > 0) != (k <= 32):
+                raise RuntimeError(f"edges -k {k} launched K2 {k2} times")
+            v = voxel_downsample(ucloud, 0.002)
+            e = detect_edges(v, k=k)
+            same(f"phase 14.4 edges -k {k}", load_pcd(f"{d}/edges{k}.pcd").xyz,
+                 v.xyz.cpu().numpy()[(e & v.mask).cpu().numpy()])
+        run_cli(["var-desc", u, "--out", f"{d}/var.txt"])
+        nrm, _ = estimate_normals(ucloud, k=40)
+        keys, kidx = compact_cloud(ucloud, uniform_sample_mask(ucloud, 0.01),
+                                   512)
+        desc, valid = compute_variance_descriptor(keys, nrm[kidx], ucloud, nrm,
+                                                  radius=0.05)
+        # the file holds each value to 6 decimals
+        same("phase 14.4 var-desc", np.loadtxt(f"{d}/var.txt"),
+             desc.cpu().numpy()[valid.cpu().numpy()].reshape(-1), tol=6e-7)
+        print(f"# phase 14.4 crop, segment, edges -k 100 / 20, var-desc on "
+              f"16384 points: each output equal to its direct call "
+              f"({int(valid.sum())} variance keys) {card}", flush=True)
+
+        stdout, stderr = proc.communicate(timeout=300)
+        print(f"# phase 14.1 the CLI subprocess: exit {proc.returncode} after "
+              f"{time.perf_counter() - t_sub:.2f} s {card}", flush=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"the CLI subprocess failed:\n{stderr}")
+        same_detect("subprocess", json.loads(stdout.strip().splitlines()[-1]))
+    finally:
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        work.cleanup()
+
+    time_pending()
+    _, times = _timed_runs(run_detect)
+    busy, ops, peak = _device_busy(run_detect)
+    print(f"# phase 14.1 detect --preset shot_demo at {demo.scene_capacity} "
+          f"lanes: median {statistics.median(times):.3f} ms (min "
+          f"{min(times):.3f}, max {max(times):.3f}) over {len(times)} runs, "
+          f"device busy {busy:.3f} ms, {ops} device operations, peak "
+          f"{peak:.1f} MiB, {int(res.metrics['scene_points'])} points after "
+          f"the crop, {int(res.metrics['scene_keypoints'])} keys {card}",
+          flush=True)
+    _, t_times = _timed_runs(run_tree)
+    K, M = clusters.members.shape
+    print(f"# phase 14.2 detect --tree 3: {K} + 2 x {M} = {K + 2 * M} views "
+          f"matched of {cbank.n_views}, cluster "
+          f"{int(res_t.metrics['cluster_id'])}; median "
+          f"{statistics.median(t_times):.3f} ms against 14.1's "
+          f"{statistics.median(times):.3f} ms {card}", flush=True)
+
+    # --- 14.5 lattice keys and the pixel ingest -----------------------------
+    lat = dict(keypoints="lattice", key_group=3)
+    lo, hi = frames["lo"], frames["hi"]
+    for path, img, vmask, cfg in (
+            ("lattice organized", frames["xyz_img"], frames["valid_t"],
+             dataclasses.replace(cfgs["det"], **lat)),
+            ("lattice segmented", frames["tab_img"], frames["tab_valid_t"],
+             dataclasses.replace(cfgs["seg"], **lat))):
+        def run(img=img, vmask=vmask, cfg=cfg):
+            return detect_organized(img, vmask, bank, cfg, block=4,
+                                    half_window=5, crop_lo=lo, crop_hi=hi)
+
+        (res, n_sel), *_ = counted(path, f"phase 14.5 {path}", run)
+        (res, n_sel), t_l = _timed_runs(run)
+        n_keys = int(res.metrics["scene_keypoints"])
+        n_scene = int(res.metrics["scene_points"])
+        print(f"# phase 14.5 {path} keys: median "
+              f"{statistics.median(t_l):.3f} ms over {len(t_l)} runs, "
+              f"{n_keys} keys of {n_scene} scene points, n_selected "
+              f"{int(n_sel)} {card}", flush=True)
+        if not n_scene // 14 < n_keys <= -(-n_scene // 4):
+            raise RuntimeError(f"{path}: {n_keys} keys for {n_scene} points")
+        _held_to(f"phase 14.5 {path}", res.full_pose.cpu().numpy(),
+                 bool(res.accepted), int(res.view_idx), T_gt,
+                 LATTICE_CPU_JAX[path.split()[1]], card)
+    bcfg = dataclasses.replace(cfgs["det"], **lat)
+    imgs, valids = frames["imgs"], frames["valids"]
+
+    def run_batch():
+        return detect_organized_batch(imgs, valids, bank, bcfg, block=4,
+                                      half_window=5, crop_lo=lo, crop_hi=hi)
+
+    (res_b, n_b), *_ = counted("lattice batch", "phase 14.5 lattice batch of "
+                               f"{imgs.shape[0]}", run_batch)
+    POSE_TOL = 3e-4
+    for b in range(imgs.shape[0]):
+        r1, n1 = detect_organized(imgs[b], valids[b], bank, bcfg, block=4,
+                                  half_window=5, crop_lo=lo, crop_hi=hi)
+        acc = bool(res_b.accepted[b])
+        diff = float((res_b.full_pose[b] - r1.full_pose).abs().max())
+        tie = ""
+        if acc and int(res_b.view_idx[b]) != int(r1.view_idx):
+            shown, j, gap, _, _ = _tie(tree_map(lambda a, b=b: a[b], res_b),
+                                       r1.view_idx, POSE_TOL)
+            tie = f", its view a tier-2 twin: {shown} (gap {gap:.3e})"
+            if not shown:
+                raise RuntimeError(f"lattice batch frame {b}: another view")
+        print(f"#   lattice batch frame {b}: accepted {acc} (single run "
+              f"{bool(r1.accepted)}), view {int(res_b.view_idx[b])} "
+              f"({int(r1.view_idx)}), max |full_pose diff| {diff:.3e}{tie} "
+              f"{card}", flush=True)
+        if acc != bool(r1.accepted) or int(n_b[b]) != int(n1) or (
+                acc and diff > POSE_TOL):
+            raise RuntimeError(f"lattice batch frame {b} differs from its "
+                               f"own run")
+
+    def run_ingest():
+        return ingest_organized(frames["xyz_img"], frames["valid_t"],
+                                capacity=32768, leaf=0.004, half_window=5)
+
+    (_, _, _, n_sel), t_i = _timed_runs(run_ingest)
+    print(f"# phase 14.5 ingest_organized 640x480 (capacity 32768, leaf 4 "
+          f"mm): n_selected {int(n_sel)}, median "
+          f"{statistics.median(t_i):.3f} ms over {len(t_i)} runs {card}",
+          flush=True)
+    if not 0 < int(n_sel) <= int(frames["valid_t"].sum()):
+        raise RuntimeError(f"ingest_organized kept {int(n_sel)} points")
+    time_pending()
+    print(f"# phase 14 took {time.perf_counter() - t_phase:.1f} s {card}",
+          flush=True)
+    return counts
+
+
 def _serve_one(service, depth):
     """One depth request to ``service`` over HTTP: (status, reply, ms)."""
     with _serving(service) as url:
@@ -1602,6 +2017,8 @@ def main() -> None:
     max_err = {1: 0.0, 2: 0.0}        # K1, K2
 
     def check(q, s, k, m, label):
+        if q.ndim == 3:          # a launch of K1's batch mode
+            return check_batched(q.contiguous(), s, m, label)
         max_err[min(k, 2)] = max(max_err[min(k, 2)],
                                  _check_knn(pk, q, s, k, m, label, card))
 
@@ -2080,6 +2497,15 @@ def main() -> None:
         frames=dict(tab=tab_img, tab_valid=tab_valid, T=T_gt, lo=lo, hi=hi,
                     scene=scene), gen_cfg=gen_cfg)
 
+    # --- phase 14: the CLI's flow, lattice keys, the pixel ingest -----------
+    cli_n = _cli_phase(
+        dev, card, bank, launches, check, check_batched, timings,
+        frames=dict(xyz=xyz_h, valid=valid_h, tab=tab_h, tab_valid=tab_valid_h,
+                    T=T_gt, xyz_img=xyz_img, valid_t=valid, tab_img=tab_img,
+                    tab_valid_t=tab_valid, lo=lo, hi=hi, imgs=imgs,
+                    valids=valids),
+        cfgs=dict(det=det_cfg, seg=seg_cfg))
+
     # --- the paths at small size, card vs CPU ------------------------------
     _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card)
 
@@ -2105,7 +2531,7 @@ def main() -> None:
         2: {"bank": bank_k2, "organized": org_k2, "generic": gen_k2,
             "segmented": 0, "part banks": parts_k2, "two-part": 0,
             "multi-instance": multi_k2, "hv": hv_k2, "batch": bat_k2}}
-    for path, n in {**served_n, **fpfh_n}.items():
+    for path, n in {**served_n, **fpfh_n, **cli_n}.items():
         for kk, i in ((1, 0), ("batched", 1), (2, 2)):
             by_path[kk][path] = n[i]
     # "launches": K1 over one batch of 8, its batch mode over the same

@@ -1,9 +1,11 @@
-"""Full-size reference runs on the CPU for the FPFH chain and the generic
-path's options: the numbers ``chip_smoke.py`` phase 13 prints beside the
-card's.
+"""Full-size reference runs on the CPU for the FPFH chain, the generic
+path's options, the command-line flow and the lattice keypoints: the
+numbers ``chip_smoke.py`` phases 13 and 14 print beside the card's.
 
     JAX_PLATFORMS=cpu python scripts/full_size_reference.py fpfh [--port-bank]
     JAX_PLATFORMS=cpu python scripts/full_size_reference.py options
+    JAX_PLATFORMS=cpu python scripts/full_size_reference.py cli
+    JAX_PLATFORMS=cpu python scripts/full_size_reference.py lattice
 
 ``fpfh``: the JAX package builds ``bench.py``'s 42-view FPFH bank
 (``synthetic.fpfh_bank_recipe``; tens of minutes on a CPU) and runs its
@@ -15,6 +17,19 @@ the JAX package runs on the port's bank instead (minutes).
 ``options``: the port's ``detect`` on phase 6's cloud (the table-free
 frame's points strided to 2560, ``synthetic.generic_config``, the 42-view
 bench bank built by the port) with each of the options phase 13.2 drives.
+
+``cli``: phase 14.1's files — the bench joint (64,000 points) as
+``model.pcd``, the table-free frame's valid points as ``scene.pcd`` — and
+the port's CLI building the ``shot_demo`` bank on the CPU (42 views at
+100 px, 256 keys); then the JAX package's CLI ``detect --preset shot_demo
+--json`` and ``detect --tree 3`` on that bank (16,384 scene lanes), the
+results phase 14.1 and 14.2 are held to.
+
+``lattice``: the JAX package's and the port's ``detect_organized`` with
+``keypoints="lattice"``, ``key_group=3`` on phase 5's frame
+(``bench_config`` without the crop flags) and phase 7's table frame
+(``segmented_config``), both on the 42-view bench bank built by the port:
+the results phase 14.5 is held to.
 """
 import argparse
 import dataclasses
@@ -122,9 +137,103 @@ def options() -> None:
                 T, time.time() - t0)
 
 
+def cli() -> None:
+    import importlib
+    import json
+    import tempfile
+
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from tpu_joints_torch.cli import main as tmain
+    from tpu_joints_torch.core.io import PointData, save_pcd
+
+    jmain = importlib.import_module("tpu_joints.cli.main")
+    jmain._sync_platform = lambda: None       # no persistent compile cache
+    T = syn.bench_pose()
+    xyz, valid = syn.frame(T, 42, with_table=False)
+    with tempfile.TemporaryDirectory() as d:
+        save_pcd(f"{d}/model.pcd", PointData(xyz=syn.joint_model()))
+        save_pcd(f"{d}/scene.pcd", PointData(xyz=xyz[valid]))
+        t0 = time.time()
+        tmain(["bank", f"{d}/model.pcd", "--out", f"{d}/bank.npz",
+               "--preset", "shot_demo", "--device", "cpu"])
+        print(f"port CLI bank on the CPU in {time.time() - t0:.0f} s",
+              flush=True)
+        for extra in ([], ["--tree", "3"]):
+            t0 = time.time()
+            import contextlib
+            import io
+
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                jmain.main(["detect", f"{d}/scene.pcd", "--bank",
+                            f"{d}/bank.npz", "--preset", "shot_demo",
+                            "--json", *extra])
+            out = buf.getvalue()
+            print(out, end="")
+            res = json.loads(out.strip().splitlines()[-1])
+            rot, trans = _err(np.asarray(res["pose"]), T)
+            view = int(out.split("view=")[1].split()[0])
+            print(f"JAX CLI detect {' '.join(extra) or '(one bank)'}: "
+                  f"accepted {res['accepted']}, view {view}, rot_err "
+                  f"{rot:.3f} deg, trans_err {trans * 1000:.3f} mm "
+                  f"({time.time() - t0:.0f} s)", flush=True)
+
+
+def lattice() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import importlib
+
+    import jax.numpy as jnp
+    import torch
+
+    from tpu_joints.config import DetectionConfig
+    from tpu_joints.modelbank.bank import ModelBank as JModelBank
+    from tpu_joints_torch.modelbank.bank import build_bank
+    from tpu_joints_torch.pipelines.detect import detect_organized
+
+    jdet = importlib.import_module("tpu_joints.pipelines.detect")
+    T = syn.bench_pose()
+    t0 = time.time()
+    tb = build_bank(syn.joint_model(), **syn.bench_bank_kwargs(
+        syn.bench_config()), device="cpu")
+    arrays = tb.to_numpy()
+    jb = JModelBank(**{k: jnp.asarray(arrays[k]) for k in ARRAYS},
+                    params_hash=tb.params_hash)
+    print(f"port bank: {tb.n_views} views in {time.time() - t0:.0f} s",
+          flush=True)
+    lat = dict(keypoints="lattice", key_group=3)
+    for label, table, cfg in (
+            ("phase 5 frame", False, dataclasses.replace(
+                syn.bench_config(), segment_scene=False, remove_plane=False,
+                **lat)),
+            ("phase 7 table frame", True, dataclasses.replace(
+                syn.segmented_config(), **lat))):
+        xyz, valid = syn.frame(T, 42, with_table=table)
+        t0 = time.time()
+        res, n = detect_organized(
+            torch.as_tensor(xyz), torch.as_tensor(valid), tb, cfg, block=4,
+            half_window=5, crop_lo=torch.as_tensor(syn.CROP_LO),
+            crop_hi=torch.as_tensor(syn.CROP_HI))
+        _report(f"port on the CPU, {label}, lattice keys", res, n, T,
+                time.time() - t0)
+        t0 = time.time()
+        res, n = jdet.detect_organized(
+            jnp.asarray(xyz), jnp.asarray(valid), jb,
+            DetectionConfig(**dataclasses.asdict(cfg)), block=4,
+            half_window=5, crop_lo=jnp.asarray(syn.CROP_LO),
+            crop_hi=jnp.asarray(syn.CROP_HI))
+        _report(f"JAX on the CPU, {label}, lattice keys", res, n, T,
+                time.time() - t0)
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("fpfh", "options"))
+    ap.add_argument("what", choices=("fpfh", "options", "cli", "lattice"))
     ap.add_argument("--port-bank", action="store_true")
     a = ap.parse_args()
-    fpfh(a.port_bank) if a.what == "fpfh" else options()
+    {"fpfh": lambda: fpfh(a.port_bank), "options": options, "cli": cli,
+     "lattice": lattice}[a.what]()

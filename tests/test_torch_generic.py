@@ -255,7 +255,8 @@ def test_detect_rejects_foreign_devices_and_unported_options(problem, scene):
     _, tb, _, _, _, tcfg, _, _ = problem
     with pytest.raises(ValueError, match="bank on cpu"):
         tdet.detect(scene, tb, tcfg, viewpoint=torch.zeros(3, device="meta"))
-    with pytest.raises(NotImplementedError, match="item 15"):
+    # lattice keys need the organized front end, as in the JAX package
+    with pytest.raises(ValueError, match="organized front end"):
         tdet.prepare_scene(scene, dataclasses.replace(tcfg, keypoints="lattice"))
     # the voxel region growing, ISS keypoints and radius normals are ported
     # (their parity: tests/test_torch_generic_options.py, test_torch_fpfh.py)

@@ -211,11 +211,21 @@ def test_ingest_organized_segmented_matches(frame, flags):
 
 
 def test_ingest_organized_segmented_rejects_lattice_keypoints(frame):
+    """The segmented ingest's lattice keys (``key_group=3``) equal the JAX
+    package's, and the unorganized ``prepare_scene`` rejects
+    ``keypoints="lattice"`` without them (no sensor lattice to select on)."""
     xyz, valid, _ = frame
-    _, tcfg = _seg_cfgs()
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tingest.ingest_organized_segmented(_t(xyz), _t(valid), tcfg, block=2,
-                                           half_window=3, key_group=3)
+    jcfg, tcfg = _seg_cfgs()
+    *_, kj = jingest.ingest_organized_segmented(
+        jnp.asarray(xyz), jnp.asarray(valid), jcfg, block=2, half_window=3,
+        key_group=3)
+    st, nt, ct, _, kt = tingest.ingest_organized_segmented(
+        _t(xyz), _t(valid), tcfg, block=2, half_window=3, key_group=3)
+    np.testing.assert_array_equal(kt.numpy(), np.asarray(kj))
+    assert 0 < int(kt.sum()) < int(st.mask.sum())
+    with pytest.raises(ValueError, match="organized front end"):
+        tdet.prepare_scene(st, dataclasses.replace(tcfg, keypoints="lattice"),
+                           None, nt, ct)
 
 
 @pytest.fixture(scope="module")

@@ -128,8 +128,7 @@ SHOT_DEMO = DetectionConfig(
 FPFH_DEMO = DetectionConfig(
     # FPFH_demo.cpp: FPFH r=0.15 over the keypoint cloud itself, radius
     # normals, BOARD frames, VoxelGrid 0.03/0.02, ratio tau <= 1,
-    # region-growing crop, chained full-CAD ICP accept < 0.006 (the FPFH
-    # descriptor is not ported yet: ROADMAP queue 1 item 12)
+    # region-growing crop, chained full-CAD ICP accept < 0.006
     descriptor="fpfh", descr_rad=0.15, scene_ss=0.03, model_ss=0.02,
     fpfh_surface="keys", fpfh_k_max=192,
     normal_radius=0.15,

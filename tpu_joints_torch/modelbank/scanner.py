@@ -1,14 +1,14 @@
 """Virtual scanner: partial views of a CAD point set from icosphere cameras.
 
 A numpy copy of ``tpu_joints/modelbank/scanner.py`` (``render_views`` and
-what it needs), so the bank can be built on a host without JAX. Level 1 =
-42 cameras at the tesselated icosphere's vertices looking at the model
-centroid; each view is a pinhole z-buffer rendering back-projected into the
-camera frame.
+what it needs, and ``sample_mesh``), so the bank can be built on a host
+without JAX. Level 1 = 42 cameras at the tesselated icosphere's vertices
+looking at the model centroid; each view is a pinhole z-buffer rendering
+back-projected into the camera frame.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -46,6 +46,23 @@ def icosphere_vertices(level: int = 1) -> np.ndarray:
         verts = np.stack(vlist)
         faces = np.array(new_faces, np.int64)
     return verts.astype(np.float32)
+
+
+
+def sample_mesh(xyz: np.ndarray, faces: np.ndarray, n_samples: int,
+                rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Area-weighted uniform surface sampling of a triangle mesh."""
+    rng = rng or np.random.default_rng(0)
+    a, b, c = xyz[faces[:, 0]], xyz[faces[:, 1]], xyz[faces[:, 2]]
+    areas = 0.5 * np.linalg.norm(np.cross(b - a, c - a), axis=1)
+    probs = areas / areas.sum()
+    fi = rng.choice(len(faces), size=n_samples, p=probs)
+    u = rng.uniform(size=(n_samples, 1))
+    v = rng.uniform(size=(n_samples, 1))
+    flip = (u + v) > 1.0
+    u = np.where(flip, 1.0 - u, u)
+    v = np.where(flip, 1.0 - v, v)
+    return (a[fi] + u * (b[fi] - a[fi]) + v * (c[fi] - a[fi])).astype(np.float32)
 
 
 def _look_at(eye: np.ndarray, target: np.ndarray) -> np.ndarray:

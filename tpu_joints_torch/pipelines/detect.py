@@ -5,8 +5,9 @@ Two entry points share everything after the scene features:
 * ``detect_organized`` — raw organized frame → ingest (tile select +
   moment normals [+ the crop chain on the tile lattice: RANSAC plane
   removal, lattice region growing, per-cluster curvature filter]) →
-  uniform keypoints → SHOT (one shared k_max radius gather with the BOARD
-  frames) or FPFH-33 (over the keys or the scene) → voting frames;
+  uniform, ISS or lattice keypoints → SHOT (one shared k_max radius
+  gather with the BOARD frames) or FPFH-33 (over the keys or the scene) →
+  voting frames;
 * ``detect`` — an unorganized cloud (the CLI's file-driven flow) → kNN
   normals (kernel K2; or radius, or anchored: K2 + K1) → [RANSAC plane
   removal] → [region-growing crop over a K2 kNN graph or a voxel lattice +
@@ -80,6 +81,10 @@ from tpu_joints_torch.segment.sac import dominant_plane
 from tpu_joints_torch.segment.voxel import region_growing_voxel
 
 _BIG = 3.0e38
+# lattice keys exist only where a sensor grid does: the organized front end
+# supplies them to prepare_scene as key_select
+_NO_LATTICE = ('keypoints="lattice" requires the organized front end '
+               "(detect_organized / ingest_organized_* with key_group > 0)")
 
 
 class SceneFeatures(NamedTuple):
@@ -187,8 +192,7 @@ def prepare_scene(scene: Cloud, cfg: DetectionConfig,
             non_max_radius=2.0 * cfg.scene_ss, gamma_21=cfg.iss_gamma_21,
             gamma_32=cfg.iss_gamma_32, k_max=cfg.k_max)
     elif cfg.keypoints == "lattice":
-        raise NotImplementedError("lattice keypoints are not ported yet "
-                                  "(ROADMAP queue 1 item 15)")
+        raise ValueError(_NO_LATTICE)
     else:
         keep = uniform_sample_mask(scene, cfg.scene_ss)
     keys, kidx = compact_cloud(scene, keep, cfg.scene_key_capacity)
@@ -246,20 +250,31 @@ def _fpfh(keys: Cloud, kidx: torch.Tensor, scene: Cloud,
 def _prepare_scene_batch(scene: Cloud, cfg: DetectionConfig, normals,
                          curvature, key_select) -> SceneFeatures:
     """``prepare_scene`` for B ingested frames (scene [B, N, 3], normals
-    [B, N, 3] from the organized front end; no crop): the keypoint sampler
-    and the compaction run over the batch, each support gather is one
-    batched search, SHOT and the voting frames, which work row by row, take
-    the B·Ms keypoints as rows over the B·N scene lanes, and FPFH takes the
-    batch axis whole (each frame's surface its own)."""
+    [B, N, 3] from the organized front end; no crop): the uniform keypoint
+    sampler and the compaction run over the batch (ISS keys are selected
+    frame by frame, lattice keys come in as ``key_select`` [B, N]), each
+    support gather is one batched search, SHOT and the voting frames, which
+    work row by row, take the B·Ms keypoints as rows over the B·N scene
+    lanes, and FPFH takes the batch axis whole (each frame's surface its
+    own)."""
     if (normals is None or curvature is None or cfg.remove_plane
-            or cfg.segment_scene or key_select is not None
-            or cfg.keypoints != "uniform"):
+            or cfg.segment_scene):
         raise NotImplementedError(
-            "a batch of frames takes the organized front end's normals, "
-            "uniform keypoints and no crop chain")
+            "a batch of frames takes the organized front end's normals and "
+            "no crop chain")
     B, N, _ = scene.xyz.shape
     Ms = cfg.scene_key_capacity
-    keep = uniform_sample_mask(scene, cfg.scene_ss)
+    if key_select is not None:
+        keep = key_select & scene.mask
+    elif cfg.keypoints == "iss":
+        keep = torch.stack([iss_keypoints(
+            Cloud(*(t[b] for t in scene)), salient_radius=3.0 * cfg.scene_ss,
+            non_max_radius=2.0 * cfg.scene_ss, gamma_21=cfg.iss_gamma_21,
+            gamma_32=cfg.iss_gamma_32, k_max=cfg.k_max) for b in range(B)])
+    elif cfg.keypoints == "lattice":
+        raise ValueError(_NO_LATTICE)
+    else:
+        keep = uniform_sample_mask(scene, cfg.scene_ss)
     keys, kidx = compact_cloud(scene, keep, Ms)
     lane0 = N * torch.arange(B, device=scene.xyz.device)[:, None]
 
@@ -731,30 +746,35 @@ def organized_features(xyz_img, valid, cfg: DetectionConfig, block: int,
                        half_window: int, crop_lo, crop_hi,
                        viewpoint) -> Tuple[SceneFeatures, torch.Tensor]:
     """Raw organized frame → (SceneFeatures, n_selected): the ingest, with
-    the lattice crop chain when cfg asks for it, then ``prepare_scene``. A
-    batch of frames [B, H, W, 3] runs the crop chain frame by frame (its
-    lattice region growing reads the host per frame) and stacks the
-    working sets."""
+    the lattice crop chain when cfg asks for it and the lattice keypoints
+    with ``cfg.keypoints == "lattice"`` (one per ``cfg.key_group``² tiles),
+    then ``prepare_scene``. A batch of frames [B, H, W, 3] runs the crop
+    chain frame by frame (its lattice region growing reads the host per
+    frame) and stacks the working sets."""
+    kg = cfg.key_group if cfg.keypoints == "lattice" else 0
     if (cfg.segment_scene or cfg.remove_plane) and xyz_img.ndim == 4:
         frames = [ingest_organized_segmented(
             img, vmask, cfg, block=block, half_window=half_window,
-            crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint)
+            crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint,
+            key_group=kg)
             for img, vmask in zip(xyz_img, valid)]
-        clouds, normals, curvature, n_sel = zip(*frames)
-        scene = Cloud(*(torch.stack(f) for f in zip(*clouds)))
-        normals, curvature, n_sel = (torch.stack(t)
-                                     for t in (normals, curvature, n_sel))
+        clouds, *rest = zip(*frames)
+        out = (Cloud(*(torch.stack(f) for f in zip(*clouds))),
+               *(torch.stack(t) for t in rest))
     elif cfg.segment_scene or cfg.remove_plane:
-        scene, normals, curvature, n_sel = ingest_organized_segmented(
+        out = ingest_organized_segmented(
             xyz_img, valid, cfg, block=block, half_window=half_window,
-            crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint)
+            crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint,
+            key_group=kg)
     else:
-        scene, normals, curvature, n_sel = ingest_organized_blocks(
+        out = ingest_organized_blocks(
             xyz_img, valid, block=block, half_window=half_window,
             capacity=cfg.scene_capacity, crop_lo=crop_lo, crop_hi=crop_hi,
-            viewpoint=viewpoint)
+            viewpoint=viewpoint, key_group=kg)
+    scene, normals, curvature, n_sel = out[:4]
+    key_select = out[4] if kg > 0 else None
     feats = prepare_scene(scene, _strip_crop(cfg), viewpoint, normals,
-                          curvature)
+                          curvature, key_select=key_select)
     return feats, n_sel
 
 

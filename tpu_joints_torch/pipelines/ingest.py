@@ -1,24 +1,37 @@
 """Raw organized-frame ingestion (counterpart of
-``tpu_joints/pipelines/ingest.py``, ``key_group=0`` route), plain or with
-the scene-crop chain run on the tile lattice before compaction.
+``tpu_joints/pipelines/ingest.py``): the tile ingest, plain or with the
+scene-crop chain run on the tile lattice before compaction, and the
+pixel ingest ``ingest_organized``.
 
 One point per ``block``×``block`` pixel tile — the valid pixel nearest the
 tile mean, ties to the larger pixel index — with normals and curvature from
 the shared box-filtered moment maps. Tile reductions are reshape-and-reduce
-over the tiles, summing each tile's pixels in row-major order.
-``ingest_organized_blocks`` also takes a batch of frames [B, H, W, 3]: every
-step works on the last two (pixel or tile) axes, so the batch rides along.
+over the tiles, summing each tile's pixels in row-major order (the order of
+XLA's ``reduce_window`` on the CPU). With ``key_group > 0`` both tile
+ingests also flag one keypoint per ``key_group``×``key_group`` cell of
+tiles (``cfg.keypoints == "lattice"``). ``ingest_organized_blocks`` also
+takes a batch of frames [B, H, W, 3]: every step works on the last two
+(pixel or tile) axes, so the batch rides along.
+
+``ingest_organized`` keeps pixels instead of tiles: organized normals with
+a three-round fill of the depth-edge pixels, the crop box, and a uniform
+downsample of leaf ``leaf`` to at most ``capacity`` points.
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from tpu_joints_torch.core.cloud import SENTINEL, Cloud
+from tpu_joints_torch.core.ops import fused_sumsq
 from tpu_joints_torch.features.eigen3 import eigh3x3
-from tpu_joints_torch.features.organized import _cov_from_moments, organized_moments
-from tpu_joints_torch.filters.filters import compact_indices, gather_lanes
+from tpu_joints_torch.features.organized import (_cov_from_moments,
+                                                 estimate_normals_organized,
+                                                 organized_moments)
+from tpu_joints_torch.filters.filters import (compact_indices, gather_lanes,
+                                              uniform_sample_mask)
 from tpu_joints_torch.segment.organized import region_growing_lattice
 from tpu_joints_torch.segment.region_growing import cluster_curvature_filter
 from tpu_joints_torch.segment.sac import dominant_plane
@@ -87,6 +100,36 @@ def _tile_select(xyz_img, valid, block, crop_lo, crop_hi):
     return x, y, z, mask, pix, got, (mx, my, mz)
 
 
+def _lattice_key_flags(tmeans, got2d: torch.Tensor, g: int) -> torch.Tensor:
+    """One keypoint flag per ``g``×``g`` cell of the tile lattice: in every
+    occupied cell, the tile whose mean position is nearest the cell's mean
+    position (the UniformSampling winner rule on the lattice), ties to the
+    larger flat tile index. The lattice is zero-padded to whole cells.
+
+    Args: tmeans = (mx, my, mz) [..., Hb, Wb] tile-mean planes; got2d
+    bool[..., Hb, Wb]. Returns bool[..., Hb, Wb].
+    """
+    mx, my, mz = tmeans
+    Hb, Wb = got2d.shape[-2:]
+    pad = (0, -Wb % g, 0, -Hb % g)
+    m2 = F.pad(got2d, pad)
+    X, Y, Z = (F.pad(torch.where(got2d, t, 0.0), pad) for t in (mx, my, mz))
+    Hp, Wp = m2.shape[-2:]
+    cnt = _tile_sum(m2.to(torch.float32), g)
+    inv = 1.0 / torch.clamp_min(cnt, 1.0)
+    cx, cy, cz = (_tile_sum(t, g) * inv for t in (X, Y, Z))
+    d2 = ((X - _up(cx, g)) ** 2 + (Y - _up(cy, g)) ** 2
+          + (Z - _up(cz, g)) ** 2)
+    d2 = torch.where(m2, d2, 3e38)
+    cmin = _tiles(d2, g).amin(dim=(-3, -1))
+    winner = (d2 <= _up(cmin, g)) & m2
+    # exactly one winner per occupied cell: keep the largest flat index
+    tidx = torch.arange(Hp * Wp, device=got2d.device).reshape(Hp, Wp)
+    best = _tiles(torch.where(winner, tidx, -1), g).amax(dim=(-3, -1))
+    flag = winner & (tidx == _up(best, g))
+    return flag[..., :Hb, :Wb]
+
+
 def _moment_normals(x, y, z, mask, pix, got, half_window, viewpoint):
     """Positions, viewpoint-oriented normals and curvature λ0/Σλ at the
     ``pix`` pixels; ``ok`` = ``got`` minus pixels whose window collapsed on
@@ -125,24 +168,37 @@ def ingest_organized_blocks(
     crop_lo: Optional[torch.Tensor] = None,
     crop_hi: Optional[torch.Tensor] = None,
     viewpoint: Optional[torch.Tensor] = None,
+    key_group: int = 0,
 ) -> Tuple[Cloud, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Organized [H, W, 3] frame → (scene Cloud, normals, curvature,
-    n_selected — occupied tiles before the capacity cut); a batch of frames
-    [B, H, W, 3] with valid [B, H, W] gives every result a leading B."""
+    n_selected — occupied tiles before the capacity cut); with
+    ``key_group > 0``, a fifth element: bool lattice keypoint flags aligned
+    with the scene lanes. A batch of frames [B, H, W, 3] with valid
+    [B, H, W] gives every result a leading B."""
     if viewpoint is None:
         viewpoint = torch.zeros(3, dtype=torch.float32, device=xyz_img.device)
     H, W = xyz_img.shape[-3:-1]
-    x, y, z, mask, pix, got, _ = _tile_select(xyz_img, valid, block,
-                                              crop_lo, crop_hi)
+    Hb, Wb = H // block, W // block
+    x, y, z, mask, pix, got, tmeans = _tile_select(xyz_img, valid, block,
+                                                   crop_lo, crop_hi)
+    key_flag = None
+    if key_group > 0:
+        key_flag = _lattice_key_flags(
+            tmeans, got.reshape(*got.shape[:-1], Hb, Wb),
+            key_group).flatten(-2)
     n_selected = got.sum(-1, dtype=torch.int32)
-    if capacity is not None and capacity < (H // block) * (W // block):
+    if capacity is not None and capacity < Hb * Wb:
         idx, keep = compact_indices(got, capacity)
         pix = gather_lanes(pix, idx)
         got = keep
+        if key_flag is not None:
+            key_flag = gather_lanes(key_flag, idx) & keep
     xyz, normals, curvature, got = _moment_normals(
         x, y, z, mask, pix, got, half_window, viewpoint)
     scene = Cloud(xyz=torch.where(got[..., None], xyz, SENTINEL), mask=got,
                   rgb=torch.zeros_like(xyz))
+    if key_flag is not None:
+        return scene, normals, curvature, n_selected, key_flag & got
     return scene, normals, curvature, n_selected
 
 
@@ -158,13 +214,14 @@ def _grow_lattice(txyz, tnorm, tcurv, got, Hb: int, Wb: int, cfg):
 
 def _compact_nodes(txyz, tnorm, tcurv, keep, capacity: int):
     """The kept lattice nodes as (scene Cloud[capacity], normals,
-    curvature); an overflow is thinned uniformly along the raster order."""
+    curvature, the node index of each lane); an overflow is thinned
+    uniformly along the raster order."""
     idx, ok = compact_indices(keep, capacity)
     xyz = torch.where(ok[:, None], txyz[idx], SENTINEL)
     normals = torch.where(ok[:, None], tnorm[idx], 0.0)
     curvature = torch.where(ok, tcurv[idx], 0.0)
     return (Cloud(xyz=xyz, mask=ok, rgb=torch.zeros_like(xyz)), normals,
-            curvature)
+            curvature, idx)
 
 
 def ingest_organized_segmented(
@@ -187,16 +244,16 @@ def ingest_organized_segmented(
     both flags off (``detect._strip_crop``).
 
     Returns (scene Cloud[scene_capacity], normals, curvature, n_selected —
-    survivors of the segmentation, before the capacity cut)."""
-    if key_group > 0:
-        raise NotImplementedError("lattice keypoints are not ported yet "
-                                  "(ROADMAP queue 1 item 15)")
+    survivors of the segmentation, before the capacity cut); with
+    ``key_group > 0``, a fifth element: bool[scene_capacity] lattice
+    keypoint flags over the segmentation's survivors (a cropped tile never
+    seeds a key cell)."""
     if viewpoint is None:
         viewpoint = torch.zeros(3, dtype=torch.float32, device=xyz_img.device)
     H, W, _ = xyz_img.shape
     Hb, Wb = H // block, W // block
-    x, y, z, mask, pix, got, _ = _tile_select(xyz_img, valid, block,
-                                              crop_lo, crop_hi)
+    x, y, z, mask, pix, got, tmeans = _tile_select(xyz_img, valid, block,
+                                                   crop_lo, crop_hi)
     # normals at all tile winners: the lattice nodes
     txyz, tnorm, tcurv, got = _moment_normals(
         x, y, z, mask, pix, got, half_window, viewpoint)
@@ -215,5 +272,95 @@ def ingest_organized_segmented(
         keep = got
 
     n_selected = keep.sum(dtype=torch.int32)
-    return (*_compact_nodes(txyz, tnorm, tcurv, keep, cfg.scene_capacity),
-            n_selected)
+    scene, normals, curvature, idx = _compact_nodes(txyz, tnorm, tcurv, keep,
+                                                    cfg.scene_capacity)
+    if key_group > 0:
+        # the cell winners are chosen among the survivors by tile mean
+        key_flag = _lattice_key_flags(tmeans, keep.reshape(Hb, Wb),
+                                      key_group).reshape(-1)
+        return scene, normals, curvature, n_selected, key_flag[idx] & scene.mask
+    return scene, normals, curvature, n_selected
+
+
+def _sum3x3(a: torch.Tensor) -> torch.Tensor:
+    """3×3 SAME window sum of [..., H, W] planes, zero-padded, the nine
+    taps added in row-major order (XLA's ``reduce_window`` on the CPU)."""
+    H, W = a.shape[-2:]
+    p = F.pad(a, (1, 1, 1, 1))
+    out = p[..., 0:H, 0:W]
+    for i in range(3):
+        for j in range(3):
+            if i or j:
+                out = out + p[..., i:i + H, j:j + W]
+    return out
+
+
+def _normals_with_fill(xyz_img, valid, half_window, viewpoint):
+    """Organized normals + a 3-round border fill. Depth-edge pixels get no
+    window (PCL leaves NaN there); a pixel next to covered ones receives
+    their averaged, renormalised normal and averaged curvature, and counts
+    as covered for the next round. Returns (normals_img [H, W, 3], curv_img
+    [H, W], covered bool[H, W])."""
+    normals_img, curv_img = estimate_normals_organized(
+        xyz_img, valid, half_window=half_window, viewpoint=viewpoint)
+    has_n = fused_sumsq(normals_img) > 0.25
+    n_fill, c_fill, covered = normals_img, curv_img, has_n
+    for _ in range(3):
+        cf = covered.to(torch.float32)
+        ns = _sum3x3((n_fill * cf[..., None]).movedim(-1, 0)).movedim(0, -1)
+        cs = _sum3x3(cf)
+        curv_s = _sum3x3(c_fill * cf)
+        newly = ~covered & (cs > 0.5)
+        avg = ns / torch.clamp_min(cs, 1.0)[..., None]
+        # |avg|: the squared norm as XLA's CPU reduction forms it, its root
+        # taken in float64 and rounded once (bit-equal to the reference)
+        norm = torch.sqrt(fused_sumsq(avg).double()).to(torch.float32)
+        avg = avg / torch.clamp_min(norm, 1e-9)[..., None]
+        n_fill = torch.where(newly[..., None], avg, n_fill)
+        c_fill = torch.where(newly, curv_s / torch.clamp_min(cs, 1.0), c_fill)
+        covered = covered | newly
+    return n_fill, c_fill, covered
+
+
+def ingest_organized(
+    xyz_img: torch.Tensor,
+    valid: torch.Tensor,
+    capacity: int = 32768,
+    leaf: float = 0.004,
+    half_window: int = 5,
+    crop_lo: Optional[torch.Tensor] = None,
+    crop_hi: Optional[torch.Tensor] = None,
+    viewpoint: Optional[torch.Tensor] = None,
+) -> Tuple[Cloud, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Organized sensor cloud float32[H, W, 3] + valid bool[H, W] → padded
+    working set with normals: filled organized normals, the crop box
+    (``crop_lo``/``crop_hi``, the reference's PassThrough chain), the
+    ``leaf`` uniform downsample (PCL UniformSampling), then compaction to
+    ``capacity`` lanes (an overflow thinned uniformly along the raster
+    order). Pixels that still have no normal leave the working set.
+
+    Returns (scene Cloud[capacity], normals float32[capacity, 3],
+    curvature float32[capacity], n_selected — survivors before the
+    capacity cut).
+    """
+    H, W, _ = xyz_img.shape
+    n_fill, c_fill, covered = _normals_with_fill(
+        xyz_img, valid, half_window, viewpoint)
+    flat_n = n_fill.reshape(H * W, 3)
+    flat_c = c_fill.reshape(H * W)
+    mask = valid.reshape(H * W) & covered.reshape(H * W)
+    flat_xyz = torch.where(mask[:, None], xyz_img.reshape(H * W, 3),
+                           SENTINEL).to(torch.float32)
+    if crop_lo is not None and crop_hi is not None:
+        inside = ((flat_xyz >= crop_lo) & (flat_xyz <= crop_hi)).all(1)
+        mask = mask & inside
+        flat_xyz = torch.where(mask[:, None], flat_xyz, SENTINEL)
+    full = Cloud(xyz=flat_xyz, mask=mask, rgb=torch.zeros_like(flat_xyz))
+    keep = uniform_sample_mask(full, leaf) & mask
+    n_selected = keep.sum(dtype=torch.int32)
+    idx, got = compact_indices(keep, capacity)
+    xyz = torch.where(got[:, None], flat_xyz[idx], SENTINEL)
+    normals = torch.where(got[:, None], flat_n[idx], 0.0)
+    curvature = torch.where(got, flat_c[idx], 0.0)
+    return (Cloud(xyz=xyz, mask=got, rgb=torch.zeros_like(xyz)), normals,
+            curvature, n_selected)
