@@ -531,3 +531,79 @@ def test_lattice_keys_and_pixel_ingest_on_card_equal_cpu():
     assert int((diff > 1e-5).sum()) <= 0.001 * diff.shape[0], int(
         (diff > 1e-5).sum())
     assert float(diff.max()) < 0.05
+
+
+@pytest.mark.cuda
+def test_grid_on_card_equals_cpu():
+    """The voxel-hash grid and its radius search on the card equal the CPU
+    run bit for bit (integer hashing, gathers, the same float32 distances,
+    a stable sort)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.neighbors import grid
+
+    rng = np.random.default_rng(9)
+    xyz = rng.uniform(-0.3, 0.3, (4096, 3)).astype(np.float32)
+    mask = rng.uniform(size=4096) > 0.2
+    out = []
+    for dev in ("cpu", "cuda"):
+        x, m = torch.from_numpy(xyz).to(dev), torch.from_numpy(mask).to(dev)
+        g = grid.build_grid(x, m, cell_size=0.05)
+        out.append((g.order, g.hashes, grid.max_cell_occupancy(g),
+                    *grid.grid_radius_neighbors(g, x[:700], 0.05, 32,
+                                                bucket_cap=64,
+                                                query_chunk=256)))
+    for a, b in zip(*out):
+        assert torch.equal(a, b.cpu())
+
+
+@pytest.mark.cuda
+def test_collectives_on_card_mesh_equal_cpu_mesh():
+    """ring_knn, halo_radius_neighbors, ring_icp and sharded_match_votes on
+    a ring of four card entries (the visible cards, cuda:0 repeated where
+    fewer) against the same ring of CPU entries: distances rtol 1e-5 /
+    atol 1e-6, neighbour sets equal, poses within 5e-4, votes exact
+    (tests/test_distributed.py's tolerances)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch import distributed as dist
+
+    n = torch.cuda.device_count()
+    cards = [torch.device("cuda", i % n) for i in range(4)]
+    meshes = [dist.make_mesh(devices=[torch.device("cpu")] * 4,
+                             model_parallel=4),
+              dist.make_mesh(devices=cards, model_parallel=4)]
+    rng = np.random.default_rng(12)
+    pts = rng.normal(size=(1024, 3)).astype(np.float32) * [1.0, 0.1, 0.1]
+    pts = pts[np.argsort(pts[:, 0])].astype(np.float32)
+    mask = rng.uniform(size=1024) > 0.1
+    desc = rng.normal(size=(64, 33)).astype(np.float32)
+    bank = rng.normal(size=(8, 32, 33)).astype(np.float32)
+    bvalid = rng.uniform(size=(8, 32)) > 0.3
+    ang = np.radians(8.0)
+    R = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0],
+                  [0, 0, 1]], np.float32)
+    moved = (pts @ R.T + [0.02, 0.0, 0.0]).astype(np.float32)
+    res = []
+    for mesh, dev in zip(meshes, ("cpu", "cuda")):
+        t = {k: torch.from_numpy(v).to(dev) for k, v in dict(
+            pts=pts, mask=mask, moved=moved, desc=desc, bank=bank,
+            bvalid=bvalid).items()}
+        ones = torch.ones(1024, dtype=torch.bool, device=dev)
+        res.append(dict(
+            knn=dist.ring_knn(t["pts"], t["pts"], t["mask"], 8, mesh),
+            halo=dist.halo_radius_neighbors(t["pts"], t["mask"], 0.1, 16,
+                                            mesh, halo=64),
+            icp=dist.ring_icp(t["pts"], ones, t["moved"], ones, mesh,
+                              iterations=8, max_corr_dist=0.1),
+            votes=dist.sharded_match_votes(t["desc"], t["bank"], t["bvalid"],
+                                           30.0, mesh)))
+    cpu, card = res
+    torch.testing.assert_close(card["knn"][0].cpu(), cpu["knn"][0],
+                               rtol=1e-5, atol=1e-6)
+    (ic, vc, dc), (ig, vg, dg) = cpu["halo"], (t.cpu() for t in card["halo"])
+    for q in range(1024):
+        assert set(ig[q][vg[q]].tolist()) == set(ic[q][vc[q]].tolist()), q
+    torch.testing.assert_close(card["icp"][0].cpu(), cpu["icp"][0], rtol=0,
+                               atol=5e-4)
+    assert torch.equal(card["votes"].cpu(), cpu["votes"])

@@ -452,9 +452,17 @@ def cmd_serve(args) -> None:
     if args.warm_depth:
         w, h = (int(v) for v in args.warm_depth.lower().split("x"))
         warm = (h, w)
-    serve_forever(load_bank(args.bank, device=dev), cfg, host=args.host, port=args.port,
-                  grasp_offset=tuple(args.grasp_offset), warm_depth=warm,
-                  batch_max=args.batch_max)
+    mesh = None
+    if args.devices != 1:
+        if dev.type != "cuda":
+            raise ValueError(f"--devices {args.devices} needs the cards; "
+                             f"with --device {args.device} it must be 1")
+        from tpu_joints_torch.distributed.mesh import make_mesh
+
+        mesh = make_mesh(None if args.devices == 0 else args.devices)
+    serve_forever(load_bank(args.bank, device=dev), cfg, host=args.host,
+                  port=args.port, grasp_offset=tuple(args.grasp_offset),
+                  warm_depth=warm, batch_max=args.batch_max, mesh=mesh)
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -570,6 +578,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--batch-max", dest="batch_max", type=int, default=1,
                    help="micro-batch up to N concurrent depth frames into "
                         "one pass (1 = streaming)")
+    p.add_argument("--devices", type=int, default=1,
+                   help="split each micro-batch's frames over a data mesh "
+                        "of N cards (0 = all visible); needs --batch-max>1")
     _add_reference_flags(p)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_serve)

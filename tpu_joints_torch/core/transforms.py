@@ -54,12 +54,8 @@ def umeyama(src: torch.Tensor, dst: torch.Tensor,
     """Weighted least-squares rigid transform T [..., 4, 4], T @ src ≈ dst.
 
     src/dst [..., N, 3], weights [..., N]; all-zero weights give identity.
-    The Kabsch rotation U·diag(1, 1, sign det(UVᵀ))·Vᵀ of the cross
-    covariance H = U Σ Vᵀ is formed without an SVD (which would synchronise
-    with the host on CUDA): V is the closed-form eigenbasis of HᵀH, and
-    u0 = Hv0/|Hv0|, u1 = Gram-Schmidt(Hv1), u2 = u0 × u1. Building u2 as a
-    cross product IS the reflection fix: it equals the SVD's third column
-    when det H > 0 and its negation otherwise.
+    The rotation is :func:`kabsch_rotation` of the weighted cross
+    covariance.
     """
     w = weights.to(src.dtype)
     wsum = w.sum(-1)
@@ -70,6 +66,29 @@ def umeyama(src: torch.Tensor, dst: torch.Tensor,
     s = src - mu_s[..., None, :]
     d = dst - mu_d[..., None, :]
     H = ((d * w[..., None]).transpose(-1, -2) @ s) / denom[..., None]
+    R = kabsch_rotation(H)
+    t = mu_d - (R @ mu_s[..., None])[..., 0]
+    T = torch.eye(4, dtype=src.dtype, device=src.device).expand(
+        *R.shape[:-2], 4, 4).clone()
+    T[..., :3, :3] = R
+    T[..., :3, 3] = t
+    eye = torch.eye(4, dtype=src.dtype, device=src.device)
+    return torch.where(safe[..., None, None], T, eye)
+
+
+def kabsch_rotation(H: torch.Tensor) -> torch.Tensor:
+    """The rotation R [..., 3, 3] that best maps source onto destination
+    offsets given their cross covariance H = Σ w·(dst − μd)(src − μs)ᵀ
+    [..., 3, 3] (any positive scale), in H's dtype.
+
+    The Kabsch rotation U·diag(1, 1, sign det(UVᵀ))·Vᵀ of H = U Σ Vᵀ is
+    formed without an SVD (which would synchronise with the host on CUDA):
+    V is the closed-form eigenbasis of HᵀH, and u0 = Hv0/|Hv0|, u1 =
+    Gram-Schmidt(Hv1), u2 = u0 × u1. Building u2 as a cross product IS the
+    reflection fix: it equals the SVD's third column when det H > 0 and its
+    negation otherwise.
+    """
+    dtype = H.dtype
     # float64 from here to R: HᵀH squares H's condition number, and Hough
     # fits routinely see σ1/σ0 ~ 1e-3 (matches piling onto a few keys).
     # R is invariant to scaling H, so normalise it: the closed form's
@@ -91,14 +110,7 @@ def umeyama(src: torch.Tensor, dst: torch.Tensor,
     u1 = torch.where(n1 > 1e-12 * torch.clamp_min(norm(h0, keepdim=True), 1e-30),
                      u1 / torch.clamp_min(n1, 1e-30), alt)
     U = torch.stack([u0, u1, cross(u0, u1)], dim=-1)
-    R = (U @ V.transpose(-1, -2)).to(src.dtype)
-    t = mu_d - (R @ mu_s[..., None])[..., 0]
-    T = torch.eye(4, dtype=src.dtype, device=src.device).expand(
-        *R.shape[:-2], 4, 4).clone()
-    T[..., :3, :3] = R
-    T[..., :3, 3] = t
-    eye = torch.eye(4, dtype=src.dtype, device=src.device)
-    return torch.where(safe[..., None, None], T, eye)
+    return (U @ V.transpose(-1, -2)).to(dtype)
 
 
 def compose(*Ts: torch.Tensor) -> torch.Tensor:

@@ -82,6 +82,16 @@ def gather_views(bank: ModelBank, idx) -> ModelBank:
                                         for k in per_view})
 
 
+def bank_to(bank: ModelBank, device) -> ModelBank:
+    """``bank`` with every tensor on ``device`` (the same object when it is
+    there already)."""
+    device = torch.device(device)
+    if bank.device == device:
+        return bank
+    return dataclasses.replace(bank, **{k: getattr(bank, k).to(device)
+                                        for k in _ARRAYS})
+
+
 def _params_hash(params: dict) -> str:
     return hashlib.sha1(json.dumps(params, sort_keys=True).encode()).hexdigest()[:16]
 

@@ -150,3 +150,11 @@ def radius_neighbors(query: torch.Tensor, source: torch.Tensor, radius: float,
                   exclude_self=exclude_self)
     r = np.float32(radius)
     return i, d <= float(r * r), d
+
+
+def pairwise_sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Dense [M, N] squared distances in the expansion form, clamped at 0
+    (small inputs only; counterpart of ``bruteforce.pairwise_sq_dist``)."""
+    a2 = (a * a).sum(-1, keepdim=True)
+    b2 = (b * b).sum(-1, keepdim=True)
+    return torch.clamp_min(a2 + b2.T - 2.0 * (a @ b.T), 0.0)

@@ -196,8 +196,11 @@ knn_split_kernel(const float* __restrict__ query,
 }
 
 // Threads of knn_split_kernel<K> the card holds at once: SMs x resident
-// blocks (bounded by the K-dependent register count) x kThreads. Read once,
-// from the device current at the first launch.
+// blocks (bounded by the K-dependent register count) x kThreads. Read once
+// per process, from the device current at the first launch, and used for
+// every card after it: right for a mesh of identical cards (H100s), which
+// is what a mesh of this process is; a mix of card models would take the
+// first one's split.
 template <int K>
 int resident_threads() {
   static const int n = [] {

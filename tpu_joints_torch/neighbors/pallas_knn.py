@@ -23,7 +23,10 @@ source index; a slot without a valid source is ``(3e38, 0)``. Returns
 only: CPU tensors take the plain versions :func:`nn1_reference` /
 :func:`nn1_batched_reference` / :func:`knnk_reference`, CUDA tensors launch
 the kernel (a failed build or launch raises). ``nn1.launches``,
-``nn1_batched.launches`` and ``knnk.launches`` count kernel launches.
+``nn1_batched.launches`` and ``knnk.launches`` count kernel launches, and
+``<wrapper>.by_device`` (a Counter by card index) the same launches per
+card; both under a lock, since a device mesh launches from one thread per
+device.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from collections import Counter
 from pathlib import Path
 from typing import Optional, Tuple
 
@@ -60,6 +64,7 @@ _ENTRY = {"nn1": {"tj_nn1": [_P] * 5 + [_I, _I, _P],
 _SOURCE_OF = {entry[3:]: src for src, entries in _ENTRY.items()
               for entry in entries}
 _build_lock = threading.Lock()
+_count_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -189,7 +194,9 @@ def _launch(wrapper, query: torch.Tensor, source: torch.Tensor,
         rc = getattr(lib, f"tj_{name}")(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError_t {rc}")
-    wrapper.launches += 1
+    with _count_lock:
+        wrapper.launches += 1
+        wrapper.by_device[q.device.index] += 1
     return out_d, out_i
 
 
@@ -251,6 +258,7 @@ def nn1(query: torch.Tensor, source: torch.Tensor,
 
 
 nn1.launches = 0
+nn1.by_device = Counter()
 
 
 def nn1_batched_reference(query: torch.Tensor, source: torch.Tensor,
@@ -282,6 +290,7 @@ def nn1_batched(query: torch.Tensor, source: torch.Tensor,
 
 
 nn1_batched.launches = 0
+nn1_batched.by_device = Counter()
 
 
 def _check_k(k: int) -> None:
@@ -331,3 +340,4 @@ def knnk(query: torch.Tensor, source: torch.Tensor, k: int,
 
 
 knnk.launches = 0
+knnk.by_device = Counter()

@@ -375,7 +375,19 @@ def _group_all_views(feats: SceneFeatures, bank: ModelBank,
                      corrs: Correspondences, cfg: DetectionConfig) -> Instances:
     """Hough voting or geometric-consistency grouping over every view (B
     frames: the bank's views B times, frame by frame)."""
-    key_xyz, rf, key_valid = bank.key_xyz, bank.rf, bank.key_valid
+    return _group_views_arrays(feats, bank.key_xyz, bank.rf, bank.key_valid,
+                               corrs, cfg)
+
+
+def _group_views_arrays(feats: SceneFeatures, key_xyz: torch.Tensor,
+                        rf: torch.Tensor, key_valid: torch.Tensor,
+                        corrs: Correspondences,
+                        cfg: DetectionConfig) -> Instances:
+    """:func:`_group_all_views` on the per-view arrays of any block of views
+    (key_xyz [V, Mk, 3], rf [V, Mk, 3, 3], key_valid [V, Mk]; ``corrs``
+    over the same views): the view-sharded batch (``distributed.batch``)
+    groups each model shard's own views."""
+    n_views = key_xyz.shape[0]
     if feats.keys.xyz.ndim == 3:      # B frames: the bank's views B times
         B = feats.keys.xyz.shape[0]
         key_xyz, rf, key_valid = (t.repeat(B, *[1] * (t.ndim - 1))
@@ -383,7 +395,7 @@ def _group_all_views(feats: SceneFeatures, bank: ModelBank,
     if cfg.algorithm == "gc":
         scene_keys = feats.keys.xyz
         if scene_keys.ndim == 3:      # every view sees its own frame
-            scene_keys = scene_keys.repeat_interleave(bank.n_views, 0)
+            scene_keys = scene_keys.repeat_interleave(n_views, 0)
         return gc_group(scene_keys, key_xyz, key_valid, corrs,
                         gc_size=cfg.cg_size, gc_threshold=cfg.cg_thresh,
                         max_instances=cfg.max_instances_per_view)
@@ -456,9 +468,31 @@ def _registered_views(bank: ModelBank, views: torch.Tensor,
                       poses: torch.Tensor):
     """The bank views ``views`` [C] moved by ``poses`` [C, 4, 4]: (xyz
     [C, Nv, 3], mask [C, Nv])."""
-    xyz = torch.einsum("cij,cnj->cni", poses[:, :3, :3], bank.view_xyz[views]) \
+    return _register(bank.view_xyz[views], bank.view_mask[views], poses)
+
+
+def _register(view_xyz: torch.Tensor, view_mask: torch.Tensor,
+              poses: torch.Tensor):
+    xyz = torch.einsum("cij,cnj->cni", poses[:, :3, :3], view_xyz) \
         + poses[:, None, :3, 3]
-    return xyz, bank.view_mask[views]
+    return xyz, view_mask
+
+
+class BankRows:
+    """The per-view rows a refine reads, of the candidate views
+    ``views`` [Ct] of ``bank``: ``view_rows(field)`` is
+    ``bank.field[views]`` and ``view_rows(field, at)`` the rows of
+    candidate positions ``at``. The view-sharded batch hands
+    ``refine_candidates`` its own rows object, gathered from the shards
+    that own the views."""
+
+    def __init__(self, bank: ModelBank, views: torch.Tensor):
+        self.bank = bank
+        self.views = views
+
+    def __call__(self, field: str, at: Optional[torch.Tensor] = None):
+        views = self.views if at is None else self.views[at]
+        return getattr(self.bank, field)[views]
 
 
 def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
@@ -481,16 +515,32 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
     one folded K1 launch; ranking, selection and gates run per frame, and
     every leaf of the result gains a leading B. The hypothesis verification
     and the clustered box run frame by frame."""
+    B = feats.cloud.xyz.shape[0] if feats.cloud.xyz.ndim == 3 else 1
+    Vt, P = inst.votes.shape
+    top_flat, top_votes = _candidate_cut(inst, cfg, B * n_parts)
+    cand_views = (top_flat // P) % (Vt // B)
+    return refine_candidates(feats, bank, BankRows(bank, cand_views), inst,
+                             top_flat, top_votes, cand_views, n_corr_total,
+                             cfg)
+
+
+def refine_candidates(feats: SceneFeatures, bank: ModelBank, view_rows,
+                      inst: Instances, top_flat: torch.Tensor,
+                      top_votes: torch.Tensor, cand_views: torch.Tensor,
+                      n_corr_total: torch.Tensor,
+                      cfg: DetectionConfig) -> DetectionResult:
+    """Everything of :func:`refine_instances` after the candidate cut:
+    ``top_flat`` / ``top_votes`` [B·C] from ``_candidate_cut``,
+    ``cand_views`` their bank views, ``view_rows`` their per-view bank rows
+    (:class:`BankRows` or the view-sharded batch's gather); ``bank``
+    supplies the full CAD, ``has_model`` and the ICP width only."""
     dev = inst.votes.device
     batched = feats.cloud.xyz.ndim == 3
     B = feats.cloud.xyz.shape[0] if batched else 1
     Vt, P = inst.votes.shape
-    V = Vt // B                                  # the bank's views
-    top_flat, top_votes = _candidate_cut(inst, cfg, B * n_parts)
     Ct = top_flat.shape[0]                       # candidates of all frames
     C = Ct // B
     frame0 = C * torch.arange(B, device=dev)[:, None]
-    cand_views = (top_flat // P) % V
     cand_valid = top_votes > 0.0
     cand_init = inst.poses.reshape(Vt * P, 4, 4)[top_flat]
     cand_ncorrs = inst.n_corrs.reshape(Vt * P)[top_flat]
@@ -515,8 +565,7 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
     icp_kw = dict(max_corr_dist=cfg.icp_max_corr_dist,
                   max_corr_start=cfg.icp_max_corr_start)
     cand_poses, cand_fitness = icp_multi(
-        bank.icp_xyz[cand_views][:, ::stride],
-        bank.icp_mask[cand_views][:, ::stride],
+        view_rows("icp_xyz")[:, ::stride], view_rows("icp_mask")[:, ::stride],
         feats.cloud, cand_init, iterations=t1_view_iters,
         point_to_plane=cfg.icp_point_to_plane,
         target_normals=feats.normals if cfg.icp_point_to_plane else None,
@@ -524,7 +573,8 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
     cand_fitness = torch.where(cand_valid, cand_fitness, _BIG)
 
     if cfg.hv_enabled:
-        inst_xyz, inst_mask = _registered_views(bank, cand_views, cand_poses)
+        inst_xyz, inst_mask = _register(view_rows("view_xyz"),
+                                        view_rows("view_mask"), cand_poses)
         hv_kw = dict(inlier_threshold=cfg.hv_inlier_threshold,
                      outlier_regularizer=cfg.hv_regularizer,
                      occlusion_threshold=cfg.hv_occlusion_threshold)
@@ -542,7 +592,7 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         cand_verified = cand_valid
         effective_fitness = cand_fitness
 
-    full_cands = compose(cand_poses, bank.poses[cand_views])
+    full_cands = compose(cand_poses, view_rows("poses"))
     coverage = unexplained = None
     in_top = None
     if has_model and (cfg.select_by_model_fitness or cfg.final_icp_iterations > 0):
@@ -616,7 +666,7 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         accepted = fitness < cfg.accept_fitness
     if two_tier:
         # re-derive the view→scene pose from the tier-2 polished CAD pose
-        view_pose = compose(full_pose, invert_rigid(bank.poses[view_idx]))
+        view_pose = compose(full_pose, invert_rigid(view_rows("poses", best)))
     accepted = accepted & cand_valid[best] & cand_verified[best]
     if cfg.coverage_accept > 0.0 and has_model:
         if unexplained is None:
@@ -627,11 +677,11 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
         # the winner must EXPLAIN the scene: few points far from the model
         accepted = accepted & (unexplained[best] < cfg.coverage_accept)
 
-    view_xyz = bank.view_xyz[view_idx]                       # [B, Nv, 3]
+    view_xyz = view_rows("view_xyz", best)                   # [B, Nv, 3]
     aligned = Cloud(
         xyz=torch.einsum("bnj,bij->bni", view_xyz, view_pose[:, :3, :3])
         + view_pose[:, None, :3, 3],
-        mask=bank.view_mask[view_idx], rgb=torch.zeros_like(view_xyz))
+        mask=view_rows("view_mask", best), rgb=torch.zeros_like(view_xyz))
     if cfg.obb_largest_cluster:
         # the reference's OBB: box the aligned view's dominant smooth
         # cluster (its region growing reads the host: frame by frame)

@@ -41,6 +41,17 @@ def tree_map(fn, tree):
     return tree
 
 
+def tree_zip(fn, trees: list):
+    """One tree shaped like ``trees[0]`` whose tensor leaves are ``fn`` of
+    the list of corresponding leaves of all ``trees`` (equally shaped);
+    other leaves come from the first tree."""
+    flat = [[] for _ in trees]
+    for i, tree in enumerate(trees):
+        tree_map(lambda t, i=i: flat[i].append(t), tree)
+    leaves = iter([fn([f[j] for f in flat]) for j in range(len(flat[0]))])
+    return tree_map(lambda _: next(leaves), trees[0])
+
+
 def to_host(tree):
     """Every tensor leaf of ``tree`` on the CPU through ONE device-to-host
     copy (one synchronisation): the leaves are packed as bytes into one

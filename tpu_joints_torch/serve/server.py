@@ -21,6 +21,16 @@ comes to the host in one copy (``batching.to_host``), so a request costs
 one host read besides those of a region growing its configuration runs.
 Request arrays go to the device once, through pinned memory without
 blocking.
+
+With a device mesh (``mesh=``, ``serve --devices N``) the frames of each
+micro-batch are split over the mesh's ``data`` axis: each data device
+runs ``detect_organized_batch`` on its share with its own replica of the
+bank (made once, at construction), each card's shares issued from its own
+thread (``distributed.mesh.run_on``), and each share's results come to the
+host in one copy. A batch holds exactly the
+queued frames: nothing pads it to the axis (the JAX package repeats the
+last frame there for XLA's per-shape executables; a device here simply
+gets one frame fewer, or none). A failing device fails its batch.
 """
 from __future__ import annotations
 
@@ -36,10 +46,10 @@ import torch
 
 from tpu_joints_torch.config import DetectionConfig
 from tpu_joints_torch.core.cloud import Cloud, make_cloud
-from tpu_joints_torch.modelbank.bank import ModelBank
+from tpu_joints_torch.modelbank.bank import ModelBank, bank_to
 from tpu_joints_torch.native import ingest_native
 from tpu_joints_torch.pipelines import detect as detect_mod
-from tpu_joints_torch.serve.batching import FrameBatcher, to_host
+from tpu_joints_torch.serve.batching import FrameBatcher, to_host, tree_zip
 from tpu_joints_torch.serve.depth import FakeDepthCamera, depth_to_cloud
 
 
@@ -122,6 +132,9 @@ class DetectionService:
     most ``max_retries`` times with exponential backoff from
     ``retry_backoff_s``: any other CUDA error is sticky, so a retry could
     not help, and it propagates.
+
+    ``mesh`` (``distributed.make_mesh``) splits every micro-batch over the
+    mesh's ``data`` axis (module docstring); it needs ``batch_max >= 2``.
     """
 
     def __init__(
@@ -134,10 +147,24 @@ class DetectionService:
         retry_backoff_s: float = 0.1,
         batch_max: int = 1,
         batch_window_ms: float = 4.0,
+        mesh=None,
     ):
         self.bank = bank
         self.cfg = cfg
         self.device = bank.device
+        self.mesh = mesh
+        self._replicas = []             # (device, bank) per data device
+        if mesh is not None:
+            if batch_max < 2:
+                raise ValueError("mesh serving needs batch_max >= 2 (the "
+                                 "data axis splits the batch)")
+            from tpu_joints_torch.distributed.mesh import DATA_AXIS
+
+            made = {}
+            for dev in mesh.axis_devices(DATA_AXIS):
+                if dev not in made:
+                    made[dev] = bank_to(bank, dev)
+                self._replicas.append((dev, made[dev]))
         self.grasp_offset = np.asarray(grasp_offset, np.float32)
         # the views on the host once, for the grasp centroid of every reply
         self._view_xyz = bank.view_xyz.cpu().numpy()
@@ -234,6 +261,8 @@ class DetectionService:
             if batcher is None:
                 def run_batch(imgs, vms, _block=block):
                     def go():
+                        if self.mesh is not None:
+                            return self._mesh_batch(imgs, vms, _block)
                         res, _ = detect_mod.detect_organized_batch(
                             _upload(imgs, self.device),
                             _upload(vms, self.device), self.bank, self.cfg,
@@ -259,6 +288,31 @@ class DetectionService:
         finally:
             self._slots.release()
         return res, latency_ms
+
+    def _mesh_batch(self, imgs: np.ndarray, vms: np.ndarray, block: int):
+        """One micro-batch split over the data devices, in contiguous
+        shares as even as the count allows; each device's result read to
+        the host in one copy, the shares concatenated in frame order."""
+        from tpu_joints_torch.distributed.mesh import run_on
+
+        shares = np.array_split(np.arange(imgs.shape[0]), len(self._replicas))
+        work = [(dev, bank, idx) for (dev, bank), idx
+                in zip(self._replicas, shares) if idx.size]
+
+        def one(i, dev):
+            _, bank, idx = work[i]
+            res, _ = detect_mod.detect_organized_batch(
+                _upload(imgs[idx], dev), _upload(vms[idx], dev), bank,
+                self.cfg, block=block, half_window=5)
+            return to_host(res)
+
+        parts = run_on([dev for dev, _, _ in work], one)
+        return tree_zip(torch.cat, parts)
+
+    @property
+    def devices(self) -> int:
+        """The devices this service runs on: the mesh's size, else 1."""
+        return self.mesh.size if self.mesh is not None else 1
 
     @property
     def n_batches(self) -> int:
@@ -397,7 +451,7 @@ def make_server(
                 self._send(200, {
                     "status": "ok",
                     "device": _device_name(service.device),
-                    "devices": 1,
+                    "devices": service.devices,
                     "requests": service.n_requests,
                     "errors": service.n_errors,
                     "rejected": service.n_rejected,
@@ -443,13 +497,16 @@ def serve_forever(
     grasp_offset: Tuple[float, float, float] = (0.0, 0.0, 0.0),
     warm_depth=None,
     batch_max: int = 1,
+    mesh=None,
 ) -> None:
-    service = DetectionService(bank, cfg, grasp_offset, batch_max=batch_max)
+    service = DetectionService(bank, cfg, grasp_offset, batch_max=batch_max,
+                               mesh=mesh)
     service.warmup(depth_shape=warm_depth)
     server = make_server(service, host, port)
     print(f"tpu_joints_torch detection server on http://{host}:{port} "
           f"(bank: {bank.n_views} views, device {_device_name(bank.device)}, "
-          f"batch_max={service.batch_max})", flush=True)
+          f"{service.devices} device(s), batch_max={service.batch_max})",
+          flush=True)
     try:
         server.serve_forever()
     finally:
