@@ -17,8 +17,8 @@ against the plain version at every timed shape and timed there in turns
 with this tree's kernels (other, this, this, other). ``--yardsticks``
 re-times the plain version and cdist+topk at every timed shape; by default
 they are timed only at the kernels' main shapes (phase 3's K1 ICP shape and
-batch shape, phase 6's K2 region-growing shape) and at the shapes phase 15
-adds (the older shapes' yardsticks stand in PERF.md).
+batch shape, phase 6's K2 region-growing shape); the other shapes'
+yardsticks stand in PERF.md.
 
 Phases (any failure raises and the exit code is non-zero):
   1. device  — card name and power limit (nvidia-smi);
@@ -187,16 +187,17 @@ Phases (any failure raises and the exit code is non-zero):
                within 0.5 deg / 3 mm, phase 11's gate, K1 launches per
                device, host reads per batch (one per device with frames),
                every new per-device shape rechecked and timed, the batch on
-               the mesh beside the single-device batch in turns; 15.2
+               the mesh beside the single-device batch in turns, and issued
+               from one thread per data device (as on distinct cards), equal
+               bit for bit to the one-thread issue; 15.2
                distributed.detect_batch (generic_config, phase 6's cloud and
                3 jittered copies, a 2 x 2 mesh: 21 views a shard), both call
-               forms, each scene held to its single-device detect by phase
-               11's rule (the accept flag equal; an accepted scene's view
-               equal, its pose within rtol 1e-4 / atol 1e-5 and fitness
-               within rtol 1e-4; a rejected scene's differing winner
-               printed with the match and Hough differences the view blocks
-               make), every K2 launch rechecked, wall time against the
-               serial loop; 15.3
+               forms, each scene held to its single-device detect (accept
+               flag and view equal, pose within rtol 1e-4 / atol 1e-5,
+               fitness within rtol 1e-4), every K2 launch rechecked, the
+               issue from one thread per data row (as on distinct cards)
+               equal bit for bit to the one-thread issue, wall time against
+               the serial loop; 15.3
                the collectives on a ring of 4: ring_knn (k = 16) and
                halo_radius_neighbors (r = 0.06, k_max 96, the halo sized
                from the data) on the table frame's 307,200 lanes unprojected
@@ -366,8 +367,8 @@ def _other_call(fn, q, s, m, k):
 
 # re-time the plain version and cdist+topk at every timed shape
 # (``--yardsticks``); by default only where ``yardsticks=True`` is passed:
-# the kernels' main shapes and the shapes the newest phase adds. PERF.md's
-# table carries the others' yardsticks from earlier runs.
+# the kernels' main shapes. PERF.md's table carries the others' yardsticks
+# from earlier runs.
 _EVERY_YARDSTICK = [False]
 _T_START = time.perf_counter()
 
@@ -2012,14 +2013,6 @@ def _cli_phase(dev, card, bank, launches, check, check_batched, timings,
     return counts
 
 
-def _on_card(t):
-    """The device context of tensor ``t`` (timings and checks of inputs
-    recorded on another card run there)."""
-    import torch
-
-    return torch.cuda.device(t.device)
-
-
 def _layouts(n_cards):
     """Phase 15's meshes: (label, data-mesh devices, 2-D mesh devices and
     its model axis, ring devices). Over every visible card; where fewer
@@ -2066,23 +2059,21 @@ def _mesh_phase(dev, card, bank, launches, check, check_batched, timings,
 
     from tpu_joints_torch import synthetic as syn
     from tpu_joints_torch.core.cloud import make_cloud
-    from tpu_joints_torch.core.ops import fused_sumsq
+    from tpu_joints_torch.core.ops import fused_sumsq, top_k
     from tpu_joints_torch.distributed import (detect_batch, halo_radius_neighbors,
                                               make_mesh, ring_icp, ring_knn,
                                               shard_inputs, sharded_match_votes,
                                               stack_clouds)
-    from tpu_joints_torch.distributed.halo import smallest_k
+    from tpu_joints_torch.distributed import mesh as mesh_mod
+    from tpu_joints_torch.distributed.mesh import on_device
     from tpu_joints_torch.neighbors import bruteforce
     from tpu_joints_torch.neighbors import pallas_knn as pk
-    from tpu_joints_torch.pipelines.detect import (_group_all_views,
-                                                   _group_views_arrays, detect,
+    from tpu_joints_torch.pipelines.detect import (detect,
                                                    detect_organized_batch,
-                                                   match_bank,
-                                                   organized_features,
-                                                   prepare_scene)
+                                                   organized_features)
     from tpu_joints_torch.recognize.icp import icp
     from tpu_joints_torch.serve import DetectionService
-    from tpu_joints_torch.serve.batching import to_host
+    from tpu_joints_torch.serve.batching import to_host, tree_map
     from tpu_joints_torch.serve.depth import depth_to_cloud
     from tpu_joints_torch.serve.server import depth_block
 
@@ -2104,6 +2095,30 @@ def _mesh_phase(dev, card, bank, launches, check, check_batched, timings,
                  if len(set(data + grid + ring)) == 1 and len(data + ring) > 2
                  else "") + f" {card}", flush=True)
     by_path = {}
+    real_issuer = mesh_mod._issuer
+
+    def threaded(run, reps):
+        """``run()`` ``reps`` times with ``run_on`` issuing each mesh entry
+        from its own thread, as on a mesh of distinct cards: (results, ms)."""
+        mesh_mod._issuer = lambda i, d: i
+        try:
+            outs, ms = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(run())
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1000.0)
+        finally:
+            mesh_mod._issuer = real_issuer
+        return outs, ms
+
+    def bit_equal(a, b):
+        la, lb = [], []
+        tree_map(la.append, a)
+        tree_map(lb.append, b)
+        return len(la) == len(lb) and all(torch.equal(x, y)
+                                          for x, y in zip(la, lb))
 
     def reset():
         for w in (pk.nn1, pk.nn1_batched, pk.knnk):
@@ -2174,19 +2189,18 @@ def _mesh_phase(dev, card, bank, launches, check, check_batched, timings,
                              if not k.startswith("mesh")))
         for shape in sorted(set(rec.shapes()) - seen):
             q, s_, k, m = rec.first(shape)
-            with _on_card(q):
+            with on_device(q.device):
                 if len(shape) == 4:
                     check_batched(q.contiguous(), s_, m,
                                   f"phase 15.1 {shape}, recorded inputs")
                     timings["batched"].append(_time_nn1_batched(
                         pk, q.contiguous(), s_, m, card,
-                        f"phase 15.1 K1 batched {shape}", reps=5,
-                        yardsticks=True))
+                        f"phase 15.1 K1 batched {shape}", reps=5))
                 else:
                     check(q, s_, k, m, f"phase 15.1 {shape}, recorded inputs")
                     timings[1].append(_time_knn(
                         pk, q, s_, m, k, card, f"phase 15.1 K1 {shape}",
-                        reps=5, yardsticks=True))
+                        reps=5))
         n_acc = 0
         for b, (reply, r1) in enumerate(zip([r for _, r, _ in out], ref)):
             rot, trans = _err(np.asarray(reply["pose"]), np.asarray(r1["pose"]))
@@ -2219,6 +2233,17 @@ def _mesh_phase(dev, card, bank, launches, check, check_batched, timings,
               f"{[round(t, 3) for t in turns['mesh']]} against "
               f"{[round(t, 3) for t in turns['single']]} on {dev} alone (in "
               f"turns single, mesh, mesh, single) {card}", flush=True)
+        if len(data) > 1:
+            serial = svc._mesh_batch(imgs_h, vms_h, blk)
+            outs_t, ms_t = threaded(
+                lambda: svc._mesh_batch(imgs_h, vms_h, blk), 1)
+            if not all(bit_equal(o, serial) for o in outs_t):
+                raise RuntimeError(f"phase 15.1 ({label}): the threaded issue "
+                                   f"differs from the one-thread issue")
+            print(f"# phase 15.1 ({label}): the batch issued from one thread "
+                  f"per data device ({busy} threads): equal bit for bit to "
+                  f"the one-thread issue; ms "
+                  f"{[round(t, 3) for t in ms_t]} {card}", flush=True)
     print(f"# phase 15.1 took {time.perf_counter() - t_phase:.1f} s {card}",
           flush=True)
 
@@ -2248,7 +2273,7 @@ def _mesh_phase(dev, card, bank, launches, check, check_batched, timings,
             by_path[f"mesh detect_batch {form} ({label})"] = n
             k2 = rec.k2_calls()
             for q, s_, k, m in k2:
-                with _on_card(q):
+                with on_device(q.device):
                     check(q, s_, k, m, f"phase 15.2 {form} ({label}) K2, "
                                        f"recorded inputs")
             print(f"# phase 15.2 detect_batch {form} ({label}, "
@@ -2260,86 +2285,45 @@ def _mesh_phase(dev, card, bank, launches, check, check_batched, timings,
             if len(k2) != n[2] or n[2] != 4 * len(pts):
                 raise RuntimeError(f"phase 15.2 {form}: {n[2]} K2 launches, "
                                    f"{len(k2)} recorded")
-        # phase 11's rule for a batch against its single runs: the accept
-        # flag equal on every scene; an accepted scene's view equal and its
-        # pose and fitness within tests/test_distributed.py's tolerances. A
-        # rejected scene's winner is reported: a [Ms, Vl*Mk] product rounds
-        # unlike the [Ms, V*Mk] one, which can flip a near-tie among wrong
-        # candidates (printed below as the matches that differ)
+        # tests/test_distributed.py's rule, on every scene: the accept flag
+        # and the view equal to the single detect's, the pose within rtol
+        # 1e-4 / atol 1e-5, the fitness within rtol 1e-4
         worst = [0.0, 0.0]
         for b, r1 in enumerate(singles):
             for form, out in outs.items():
-                acc = bool(out.accepted[b])
                 pose = out.full_pose[b].cpu()
                 ref_pose = r1.full_pose.cpu()
-                same = (int(out.view_idx[b]) == int(r1.view_idx)
-                        and torch.allclose(pose, ref_pose, rtol=1e-4,
-                                           atol=1e-5)
-                        and math.isclose(float(out.fitness[b]),
-                                         float(r1.fitness), rel_tol=1e-4,
-                                         abs_tol=1e-8))
-                if acc != bool(r1.accepted) or (acc and not same):
+                if (bool(out.accepted[b]) != bool(r1.accepted)
+                        or int(out.view_idx[b]) != int(r1.view_idx)
+                        or not torch.allclose(pose, ref_pose, rtol=1e-4,
+                                              atol=1e-5)
+                        or not math.isclose(float(out.fitness[b]),
+                                            float(r1.fitness), rel_tol=1e-4,
+                                            abs_tol=1e-8)):
                     raise RuntimeError(
                         f"phase 15.2 {form} ({label}) scene {b}: accepted "
-                        f"{acc} vs {bool(r1.accepted)}, view "
+                        f"{bool(out.accepted[b])} vs {bool(r1.accepted)}, view "
                         f"{int(out.view_idx[b])} vs {int(r1.view_idx)}, pose "
                         f"{float((pose - ref_pose).abs().max()):.3e}, fitness "
                         f"{float(out.fitness[b]):.6e} vs {float(r1.fitness):.6e}")
-                if acc:
-                    worst[0] = max(worst[0],
-                                   float((pose - ref_pose).abs().max()))
-                    worst[1] = max(worst[1], abs(float(out.fitness[b])
-                                                 - float(r1.fitness)))
-                elif not same:
-                    print(f"#   phase 15.2 {form} ({label}) scene {b}: "
-                          f"rejected as its single detect is; its winner "
-                          f"differs: view {int(out.view_idx[b])} vs "
-                          f"{int(r1.view_idx)}, fitness "
-                          f"{float(out.fitness[b]):.6e} vs "
-                          f"{float(r1.fitness):.6e} {card}", flush=True)
+                worst[0] = max(worst[0], float((pose - ref_pose).abs().max()))
+                worst[1] = max(worst[1], abs(float(out.fitness[b])
+                                             - float(r1.fitness)))
             rot, trans = _err(r1.full_pose.cpu().numpy(), T_gt)
             print(f"#   phase 15.2 ({label}) scene {b}: view "
                   f"{int(r1.view_idx)}, accepted {bool(r1.accepted)}, "
-                  f"{rot:.3f} deg / {trans * 1000:.3f} mm from the truth "
-                  f"{card}", flush=True)
-        if model > 1:
-            Vl = bank.n_views // model
-            flips, hough = [], []
-            for c_ in clouds:
-                f = prepare_scene(c_, gen_cfg)
-                full = match_bank(f.desc, f.desc_valid, bank.desc,
-                                  bank.key_valid, gen_cfg)
-                parts = [match_bank(f.desc, f.desc_valid,
-                                    bank.desc[j * Vl:(j + 1) * Vl],
-                                    bank.key_valid[j * Vl:(j + 1) * Vl],
-                                    gen_cfg) for j in range(model)]
-                idx = torch.cat([p_.model_idx for p_ in parts])
-                ok = torch.cat([p_.valid for p_ in parts])
-                flips.append(int(((idx != full.model_idx) & full.valid).sum()
-                                 + (ok != full.valid).sum()))
-                # Hough over each block of views against over all of them,
-                # from the full product's correspondences
-                whole = _group_all_views(f, bank, full, gen_cfg)
-                blocks = [_group_views_arrays(
-                    f, bank.key_xyz[j * Vl:(j + 1) * Vl],
-                    bank.rf[j * Vl:(j + 1) * Vl],
-                    bank.key_valid[j * Vl:(j + 1) * Vl],
-                    full._replace(**{k_: getattr(full, k_)[j * Vl:(j + 1) * Vl]
-                                     for k_ in full._fields}), gen_cfg)
-                    for j in range(model)]
-                hough.append((
-                    float((torch.cat([b_.votes for b_ in blocks])
-                           - whole.votes).abs().max()),
-                    float((torch.cat([b_.poses for b_ in blocks])
-                           - whole.poses).abs().max())))
-            print(f"# phase 15.2 ({label}): per scene, the (view, key) matches "
-                  f"that {model} products of [Ms, {Vl}*Mk] change against one "
-                  f"[Ms, {bank.n_views}*Mk] product: {flips} of "
-                  f"{bank.n_views * gen_cfg.scene_key_capacity}; Hough over "
-                  f"{model} blocks of views against all views at once, max "
-                  f"|votes diff| and |poses diff|: "
-                  f"{[(f'{a:.3e}', f'{b:.3e}') for a, b in hough]} {card}",
-                  flush=True)
+                  f"{rot:.3f} deg / {trans * 1000:.3f} mm from the truth; both "
+                  f"forms equal its single detect {card}", flush=True)
+        if len(grid) // model > 1:
+            outs_t, ms_t = threaded(
+                lambda: detect_batch(*placed, gen_cfg, mesh=mesh), 1)
+            if not all(bit_equal(o, outs["mesh="]) for o in outs_t):
+                raise RuntimeError(f"phase 15.2 ({label}): the threaded issue "
+                                   f"differs from the one-thread issue")
+            print(f"# phase 15.2 ({label}): issued from one thread per data "
+                  f"row ({len(grid) // model} threads): equal bit for bit to "
+                  f"the one-thread issue; ms "
+                  f"{[round(t, 3) for t in ms_t]} {card}", flush=True)
         turns = _turns({"single": lambda: detect_batch(stacked, bank, gen_cfg),
                         "mesh": lambda: detect_batch(*placed, gen_cfg,
                                                      mesh=mesh)},
@@ -2387,8 +2371,8 @@ def _mesh_phase(dev, card, bank, launches, check, check_batched, timings,
     q2, s2 = fused_sumsq(xyz0[rows0]), fused_sumsq(xyz0)
     dense = torch.where(mask0[None], torch.clamp_min(
         q2[:, None] + s2[None] - 2.0 * (xyz0[rows0] @ xyz0.T), 0.0), 3.0e38)
-    d16, i16 = smallest_k(dense, 16)
-    d96, i96 = smallest_k(dense, 97)
+    d16, i16 = top_k(dense, 16, largest=False)
+    d96, i96 = top_k(dense, 97, largest=False)
     del dense
     r = 0.06
     r2 = float(np.float32(r) * np.float32(r))
@@ -2537,8 +2521,7 @@ def main() -> None:
                          "knnk.cu, timed in turns with this tree's")
     ap.add_argument("--yardsticks", action="store_true",
                     help="re-time the plain version and cdist+topk at every "
-                         "timed shape, not only at the kernels' main shapes "
-                         "and phase 15's new ones")
+                         "timed shape, not only at the kernels' main shapes")
     args = ap.parse_args()
     _EVERY_YARDSTICK[0] = args.yardsticks
     import numpy as np

@@ -26,6 +26,7 @@ within 0.5 deg / 3 mm (``tests/test_serve.py``).
 import concurrent.futures
 import dataclasses
 import importlib
+import threading
 
 import numpy as np
 import pytest
@@ -48,6 +49,8 @@ from tpu_joints_torch.modelbank import bank as tbank
 from tpu_joints_torch.pipelines import detect as tdet
 from tpu_joints_torch.recognize.matching import Correspondences
 from tpu_joints_torch.serve import DetectionService
+from tpu_joints_torch.serve.depth import depth_to_cloud
+from tpu_joints_torch.serve.server import depth_block
 
 jdet = importlib.import_module("tpu_joints.pipelines.detect")
 tcli = importlib.import_module("tpu_joints_torch.cli.main")
@@ -271,6 +274,57 @@ def test_mesh_service_needs_batching_and_fails_with_a_shard(problem,
     with pytest.raises(RuntimeError, match="device 1 failed"):
         svc._mesh_batch(img, np.zeros((2, 16, 16), bool), 2)
     assert calls == [1, 1]
+
+
+def _leaves(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _leaves(v)]
+    if isinstance(x, dict):
+        return [t for v in x.values() for t in _leaves(v)]
+    return []
+
+
+def _assert_bit_equal(a, b):
+    la, lb = _leaves(a), _leaves(b)
+    assert len(la) == len(lb) > 0
+    for x, y in zip(la, lb):
+        assert x.shape == y.shape and torch.equal(x, y)
+
+
+def test_threaded_issue_equals_the_serial_issue(problem, batches,
+                                                monkeypatch):
+    """``run_on`` as it runs on a mesh of distinct cards, one thread per
+    entry (here keyed by entry, on meshes that name the CPU several times),
+    against its one-thread issue: ``detect_batch`` (4 x 2 mesh, both forms)
+    and the mesh service's micro-batch (3 frames over a data-4 mesh) equal
+    bit for bit, run after run."""
+    _, tcfg, _, tb, pts = problem
+    mesh = tdist.make_mesh(devices=[CPU] * 8, model_parallel=2)
+    placed = tdist.shard_inputs(tdist.stack_clouds(
+        [make_cloud(p, capacity=512, device="cpu") for p in pts]), tb, mesh)
+    svc = DetectionService(tb, tcfg, batch_max=4,
+                           mesh=tdist.make_mesh(devices=[CPU] * 4))
+    xyz = [depth_to_cloud(d, fov_deg=57.0, near=0.05, far=5.0)
+           for d in _frames()]
+    vms = np.stack([np.isfinite(x).all(-1) for x in xyz])
+    imgs = np.nan_to_num(np.stack(xyz)).astype(np.float32)
+    block = depth_block(*imgs.shape[1:3], tcfg.scene_capacity)
+    H, W = (n - n % block for n in imgs.shape[1:3])
+    imgs, vms = imgs[:, :H, :W], vms[:, :H, :W]
+    serial = svc._mesh_batch(imgs, vms, block)
+    issued = []
+    real = tdist.mesh._on_device
+    monkeypatch.setattr(tdist.mesh, "_issuer", lambda i, d: i)
+    monkeypatch.setattr(tdist.mesh, "_on_device", lambda *a: issued.append(
+        threading.get_ident()) or real(*a))
+    for _ in range(2):
+        _assert_bit_equal(tdist.detect_batch(*placed, tcfg), batches["mesh"])
+        _assert_bit_equal(tdist.detect_batch(*placed, tcfg, mesh=mesh),
+                          batches["mesh"])
+        _assert_bit_equal(svc._mesh_batch(imgs, vms, block), serial)
+    assert len(issued) == 2 * (4 + 4 + 3) and len(set(issued)) > 1
 
 
 def test_cli_serve_devices_builds_a_data_mesh(problem, monkeypatch):

@@ -1,7 +1,8 @@
 """Small tensor helpers that pin down orders the JAX reference relies on.
 
 * ``top_k``: the reference's ``lax.top_k`` order — descending, ties to the
-  lower index (a stable sort; ``torch.topk`` promises no tie order on CUDA).
+  lower index (``torch.topk`` over keys that never tie; it promises no tie
+  order of its own on CUDA).
 * ``take``: row ``i`` of ``x`` for a 0-dim index tensor without a host sync.
 * ``segment_sum``: per-segment sums over sorted segment ids, each segment
   summed in lane order (no float atomics, so the result is deterministic on
@@ -16,13 +17,27 @@ from typing import Tuple
 import torch
 
 
-def top_k(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, indices) of the ``k`` largest entries along the last axis."""
-    if k == 1:
-        v, i = x.max(dim=-1, keepdim=True)       # first index of the maximum
-        return v, i
-    v, i = torch.sort(x, dim=-1, descending=True, stable=True)
-    return v[..., :k], i[..., :k]
+def top_k(x: torch.Tensor, k: int, largest: bool = True
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the ``k`` largest (or smallest) entries along the
+    last axis of a float32 ``x``, in order, ties to the lower index:
+    ``lax.top_k(x, k)`` (or ``lax.top_k(-x, k)``). Each entry is keyed by
+    its float bits, mapped to an order-preserving integer (-0 folded into
+    +0), above its position (complemented for ``largest``), so no two keys
+    tie and ``torch.topk``'s order is exact."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"top_k takes float32, got {x.dtype}")
+    if k > x.shape[-1]:
+        raise ValueError(f"k={k} exceeds the {x.shape[-1]} candidates")
+    if k == 1:                                   # first index of the extreme
+        return (x.max(dim=-1, keepdim=True) if largest
+                else x.min(dim=-1, keepdim=True))
+    bits = (x + 0.0).contiguous().view(torch.int32).to(torch.int64)
+    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits) << 32
+    pos = torch.arange(x.shape[-1], device=x.device)
+    _, i = torch.topk(key | (0xFFFFFFFF - pos if largest else pos), k,
+                      dim=-1, largest=largest)
+    return x.gather(-1, i), i
 
 
 def fused_sumsq(v: torch.Tensor) -> torch.Tensor:

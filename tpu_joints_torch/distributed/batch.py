@@ -10,28 +10,31 @@ JAX package's ``_detect_batch_shardmap``, with its collectives written out:
   * the scenes are split over ``data``: each data row works on its own
     scenes, from its own thread (``mesh.run_on``), one scene at a time;
   * a scene's features are computed once, on the row's first device, and
-    copied to the row's other devices;
+    its descriptors copied to the row's other devices;
   * each model shard (device ``(r, c)``) matches the scene against its own
-    block of views and groups those views (``match_bank``,
-    ``_group_views_arrays``); only its per-view instance tables [Vl, P] and
-    its correspondence count cross to the row's first device, where the
-    tables are concatenated in view order and the counts summed in shard
-    order (the psum);
-  * the candidate cut runs there, and the refine reads the bank rows of the
-    cut candidates only: each shard gathers the candidates' rows at its own
-    clamped view indices, sends them in one copy, and the row's first
-    device keeps each candidate's owner's rows. No device holds the whole
-    per-view bank, and nothing reads the host for it.
+    block of views (the [Ms, Vl·Mk] descriptor product); only its
+    per-(key, view) matches [Ms, Vl] cross to the row's first device, where
+    they are concatenated in view order (the all-gather);
+  * the grouping, the candidate cut and the refine run there. The grouping
+    takes every view's keypoints (gathered once per call) and the matches
+    laid out as one call over every view lays them out, so a scene's
+    result is bit for bit its single-device ``detect``'s wherever the
+    shards' products round as the whole one does. (Grouping each shard's
+    views apart, as the JAX package does, is not: PyTorch's CUDA sums over
+    a view's keys take an order that depends on how many views the call
+    holds and on their layout, and a near-tie among the candidates then
+    flips.) The refine reads the bank rows of the cut candidates only:
+    each shard gathers the candidates' rows at its own clamped view
+    indices, sends them in one copy, and the row's first device keeps each
+    candidate's owner's rows. No device holds the whole per-view bank, and
+    nothing reads the host for it.
 
 The JAX package's two call forms (GSPMD on placed inputs, ``shard_map``
 with ``mesh=``) are this one code path here: there is no compiler to
-partition the first. A scene's result equals its single-device ``detect``
-up to the rounding of the per-shard descriptor products ([Ms, Vl·Mk]
-instead of [Ms, V·Mk]).
+partition the first.
 """
 from __future__ import annotations
 
-import contextlib
 from typing import List
 
 import torch
@@ -39,13 +42,13 @@ import torch
 from tpu_joints_torch.config import DetectionConfig
 from tpu_joints_torch.core.cloud import Cloud
 from tpu_joints_torch.distributed.mesh import (MODEL_AXIS, Mesh, Placed,
-                                               bank_sharding, device_put,
-                                               psum, replicated, run_on,
+                                               all_gather, bank_sharding,
+                                               device_put, on_device,
+                                               replicated, run_on,
                                                scene_sharding)
 from tpu_joints_torch.modelbank.bank import _ARRAYS, ModelBank
 from tpu_joints_torch.pipelines import detect as D
-from tpu_joints_torch.recognize.hough import Instances
-from tpu_joints_torch.serve.batching import tree_map, tree_zip
+from tpu_joints_torch.serve.batching import tree_zip
 
 # the bank arrays every device holds whole; the rest are split by views
 _REPLICATED = ("poses", "model_xyz", "model_mask")
@@ -126,11 +129,6 @@ def _local_bank(bank: ModelBank, r: int, c: int) -> ModelBank:
                      params_hash=bank.params_hash, has_model=bank.has_model)
 
 
-def _on(dev: torch.device):
-    return (torch.cuda.device(dev) if dev.type == "cuda"
-            else contextlib.nullcontext())
-
-
 def _detect_row(scenes: Cloud, bank: ModelBank, cfg: DetectionConfig,
                 mesh: Mesh, r: int) -> list:
     """Data row r's scenes, one at a time (module docstring)."""
@@ -139,39 +137,31 @@ def _detect_row(scenes: Cloud, bank: ModelBank, cfg: DetectionConfig,
     dev0 = devs[0]
     banks = [_local_bank(bank, r, c) for c in range(m)]
     Vl = banks[0].n_views
-    V = Vl * m
     cfg = D._tier_cfg(banks[0], cfg)
+    keys = [all_gather([getattr(b, k) for b in banks])
+            for k in ("key_xyz", "rf", "key_valid")]
     xyz, mask, rgb = (t.local(r, 0) for t in scenes)
     out = []
     for b in range(xyz.shape[0]):
         feats = D.prepare_scene(Cloud(xyz[b], mask[b], rgb[b]), cfg)
-        tables, counts = [], []
-        for c, (dev, bc) in enumerate(zip(devs, banks)):
-            with _on(dev):
-                f = feats if dev == dev0 else _copy_features(feats, dev)
-                corrs = D.match_bank(f.desc, f.desc_valid, bc.desc,
-                                     bc.key_valid, cfg)
-                inst = D._group_views_arrays(f, bc.key_xyz, bc.rf,
-                                             bc.key_valid, corrs, cfg)
-                counts.append(corrs.valid.sum(dtype=torch.int32))
-                tables.append(inst)
-        inst = Instances(*(torch.cat([t.to(dev0, non_blocking=True)
-                                      for t in field])
-                           for field in zip(*tables)))
-        n_corr = psum(counts)
+        cols = []
+        for dev, bc in zip(devs, banks):
+            with on_device(dev):
+                desc, valid = (t.to(dev, non_blocking=True)
+                               for t in (feats.desc, feats.desc_valid))
+                cols.append(D._match_columns(desc, valid, bc.desc,
+                                             bc.key_valid, cfg))
+        corrs = D._per_view(*(all_gather(f, dim=1) for f in zip(*cols)),
+                            feats.desc.shape[0])
+        inst = D._group_views_arrays(feats, *keys, corrs, cfg)
+        n_corr = corrs.valid.sum(dtype=torch.int32)
         top_flat, top_votes = D._candidate_cut(inst, cfg, 1)
         P = inst.votes.shape[1]
-        cand_views = (top_flat // P) % V
+        cand_views = (top_flat // P) % (Vl * m)
         rows = _shard_rows(banks, devs, cand_views, Vl)
         out.append(D.refine_candidates(feats, banks[0], rows, inst, top_flat,
                                        top_votes, cand_views, n_corr, cfg))
     return out
-
-
-def _copy_features(feats: D.SceneFeatures, dev: torch.device):
-    """What matching and grouping read of a scene's features, on ``dev``."""
-    return tree_map(lambda t: t.to(dev, non_blocking=True),
-                    feats._replace(cloud=None, normals=None))
 
 
 def _shard_rows(banks: List[ModelBank], devs: List[torch.device],
@@ -184,7 +174,7 @@ def _shard_rows(banks: List[ModelBank], devs: List[torch.device],
     owner = torch.div(cand_views, Vl, rounding_mode="floor")
     fields = None
     for c, (dev, bc) in enumerate(zip(devs, banks)):
-        with _on(dev):
+        with on_device(dev):
             local = torch.clamp(cand_views.to(dev, non_blocking=True) - c * Vl,
                                 0, Vl - 1)
             got = {k: getattr(bc, k)[local].to(dev0, non_blocking=True)

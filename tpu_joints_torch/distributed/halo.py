@@ -14,17 +14,15 @@ view-sharded bank.
 The block math is the JAX package's, which computes it outside any Pallas
 call: the expansion form ``|q|² + |s|² − 2q·s`` clamped at 0, masked
 sources at ``INF``, and ``lax.top_k``'s order (ascending, ties to the
-lower position). It stays plain torch here. The top-k keys each distance
-by its float32 bits and its position, so every entry is distinct and the
-order is exact on every device. Query rows are taken in blocks of at most
-``_BLOCK_ELEMS`` distances, so memory stays bounded; no result depends on
-the blocking. All work is issued from the calling thread: each device's
+lower position: ``core.ops.top_k``). It stays plain torch here. Query rows
+are taken in blocks of at most ``_BLOCK_ELEMS`` distances, so memory stays
+bounded; no result depends on the blocking. All work is issued from the calling thread: each device's
 kernels queue on its current stream, and nothing reads a value to the
 host.
 
-Inputs are whole tensors on any device; they are split over the devices
-of ``axis`` (``Mesh.axis_devices``) and the results come back
-concatenated on the first of them, as the all-gather of a sharded output.
+Inputs are whole tensors on any device; they are placed over ``axis``
+(``mesh.device_put``) and the results come back concatenated on its first
+device, as the all-gather of a sharded output.
 """
 from __future__ import annotations
 
@@ -33,9 +31,10 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from tpu_joints_torch.core.ops import fused_sumsq
+from tpu_joints_torch.core.ops import fused_sumsq, top_k
 from tpu_joints_torch.core.transforms import kabsch_rotation
-from tpu_joints_torch.distributed.mesh import Mesh, psum
+from tpu_joints_torch.distributed.mesh import (Mesh, Sharding, all_gather,
+                                               device_put, psum)
 
 INF = 3.0e38
 # distances per query block of a shard's step
@@ -48,19 +47,9 @@ def _sqn(v: torch.Tensor) -> torch.Tensor:
     return fused_sumsq(v) if v.shape[-1] == 3 else (v * v).sum(-1)
 
 
-def _split(x: torch.Tensor, devices: List[torch.device]) -> List[torch.Tensor]:
-    n = len(devices)
-    if x.shape[0] % n:
-        raise ValueError(f"{x.shape[0]} rows do not split evenly over "
-                         f"{n} devices")
-    size = x.shape[0] // n
-    return [x[j * size:(j + 1) * size].to(d, non_blocking=True)
-            for j, d in enumerate(devices)]
-
-
-def _gather(parts: List[torch.Tensor]) -> torch.Tensor:
-    dev = parts[0].device
-    return torch.cat([p.to(dev, non_blocking=True) for p in parts])
+def _split(x: torch.Tensor, mesh: Mesh, axis: str) -> List[torch.Tensor]:
+    """``x``'s pieces over ``axis``, on that axis' devices."""
+    return device_put(x, Sharding(mesh, axis)).shards()
 
 
 def _rows(n_cols: int) -> int:
@@ -72,21 +61,6 @@ def _expansion(q: torch.Tensor, q2: torch.Tensor, s: torch.Tensor,
     """[rows, N] q2 + s2 − 2 q·sᵀ, clamped at 0, INF on masked sources."""
     d = q2[:, None] + s2[None, :] - 2.0 * (q @ s.T)
     return torch.where(m[None, :], torch.clamp_min(d, 0.0), INF)
-
-
-def smallest_k(d: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(values, positions) of the ``k`` smallest entries of each row of a
-    non-negative float32 ``d``, ascending, ties to the lower position —
-    ``lax.top_k(-d, k)``'s order. Each entry is keyed by its float bits
-    (order-preserving for non-negative floats; -0 folded into +0) above its
-    position, so no two keys tie and ``torch.topk``'s order is exact."""
-    if k > d.shape[1]:
-        raise ValueError(f"k={k} exceeds the {d.shape[1]} candidates")
-    pos = torch.arange(d.shape[1], device=d.device)
-    bits = (d + 0.0).contiguous().view(torch.int32).to(torch.int64)
-    _, p = torch.topk((bits << 32) | pos, k, dim=1, largest=False,
-                      sorted=True)
-    return d.gather(1, p), p
 
 
 def ring_knn(query: torch.Tensor, source: torch.Tensor,
@@ -101,7 +75,7 @@ def ring_knn(query: torch.Tensor, source: torch.Tensor,
     """
     devs = mesh.axis_devices(axis)
     n = len(devs)
-    qs, ss, ms = (_split(t, devs) for t in (query, source, source_mask))
+    qs, ss, ms = (_split(t, mesh, axis) for t in (query, source, source_mask))
     n_local = ss[0].shape[0]
     q2s = [_sqn(q) for q in qs]
     best = [[(q.new_full((r.shape[0], k), INF),
@@ -117,18 +91,18 @@ def ring_knn(query: torch.Tensor, source: torch.Tensor,
             R = _rows(n_local)
             for b, r in enumerate(range(0, qs[j].shape[0], R)):
                 d = _expansion(qs[j][r:r + R], q2s[j][r:r + R], s, s2, m)
-                bd, bp = smallest_k(d, kb)         # the block's own top-k
+                bd, bp = top_k(d, kb, largest=False)         # the block's own top-k
                 cd = torch.cat([best[j][b][0], bd], 1)
                 ci = torch.cat([best[j][b][1], bp + base], 1)
-                vd, p = smallest_k(cd, k)
+                vd, p = top_k(cd, k, largest=False)
                 best[j][b] = (vd, ci.gather(1, p))
         if step + 1 < n:       # ppermute j -> j + 1
             ss = [ss[(j - 1) % n].to(devs[j], non_blocking=True)
                   for j in range(n)]
             ms = [ms[(j - 1) % n].to(devs[j], non_blocking=True)
                   for j in range(n)]
-    d = _gather([torch.cat([b[0] for b in bj]) for bj in best])
-    i = _gather([torch.cat([b[1] for b in bj]) for bj in best])
+    d = all_gather([torch.cat([b[0] for b in bj]) for bj in best])
+    i = all_gather([torch.cat([b[1] for b in bj]) for bj in best])
     return d, i.to(torch.int32)
 
 
@@ -179,8 +153,8 @@ def ring_icp(src_xyz: torch.Tensor, src_mask: torch.Tensor,
     """
     devs = mesh.axis_devices(axis)
     n = len(devs)
-    s_, sm_, t_, tm_ = (_split(t, devs) for t in (src_xyz, src_mask, target,
-                                                  target_mask))
+    s_, sm_, t_, tm_ = (_split(t, mesh, axis)
+                        for t in (src_xyz, src_mask, target, target_mask))
     smf = [m.to(torch.float32) for m in sm_]
     max_sq = float(np.float32(min(max_corr_dist, 1.0e19)) ** 2)
     dev0 = devs[0]
@@ -240,7 +214,7 @@ def halo_radius_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
     """
     devs = mesh.axis_devices(axis)
     n = len(devs)
-    xs, ms = _split(xyz, devs), _split(mask, devs)
+    xs, ms = _split(xyz, mesh, axis), _split(mask, mesh, axis)
     n_local = xs[0].shape[0]
     halo = min(halo, n_local)
     r = float(np.float32(radius))
@@ -255,7 +229,7 @@ def halo_radius_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
         d_lo = torch.where(m, c - lo, float("inf"))   # above my lower edge
         d_hi = torch.where(m, hi - c, float("inf"))   # below my upper edge
         for d, out in ((d_lo, to_left), (d_hi, to_right)):
-            v, sel = smallest_k(d[None], halo)
+            v, sel = top_k(d[None], halo, largest=False)
             out.append((x[sel[0]], m[sel[0]] & (v[0] <= r), gidx[sel[0]]))
     idx, valid, dist = [], [], []
     for j in range(n):
@@ -273,11 +247,11 @@ def halo_radius_neighbors(xyz: torch.Tensor, mask: torch.Tensor,
         R = _rows(src.shape[0])
         for a in range(0, n_local, R):
             d = _expansion(x[a:a + R], q2[a:a + R], src, s2, src_m)
-            v, p = smallest_k(d, k_max)
+            v, p = top_k(d, k_max, largest=False)
             dist.append(v)
             idx.append(src_g[p])
             valid.append(v <= r2)
-    return _gather(idx).to(torch.int32), _gather(valid), _gather(dist)
+    return all_gather(idx).to(torch.int32), all_gather(valid), all_gather(dist)
 
 
 def sharded_match_votes(scene_desc: torch.Tensor, bank_desc: torch.Tensor,
@@ -288,7 +262,7 @@ def sharded_match_votes(scene_desc: torch.Tensor, bank_desc: torch.Tensor,
     [V, Mk, D] bank split over ``axis`` by views and the scene descriptors
     replicated; the per-view counts are gathered on the first device."""
     devs = mesh.axis_devices(axis)
-    bds, bvs = _split(bank_desc, devs), _split(bank_valid, devs)
+    bds, bvs = _split(bank_desc, mesh, axis), _split(bank_valid, mesh, axis)
     votes = []
     for j, dev in enumerate(devs):
         sd, bd = scene_desc.to(dev, non_blocking=True), bds[j]
@@ -300,4 +274,4 @@ def sharded_match_votes(scene_desc: torch.Tensor, bank_desc: torch.Tensor,
         d = torch.where(bvs[j][None], d, INF)
         d1 = d.amin(-1)                                   # [Ms, Vl]
         votes.append((d1 < threshold).sum(0, dtype=torch.int32))
-    return _gather(votes)
+    return all_gather(votes)

@@ -7,7 +7,7 @@ device of a 2-D ``(data, model)`` mesh:
   * ``data``  — scene-batch data parallelism: each data row runs the whole
     pipeline on its share of the scenes;
   * ``model`` — descriptor-bank sharding: each model column holds a block
-    of the bank's views, so matching and grouping run per view block.
+    of the bank's views, so matching runs per view block.
 
 A mesh is a grid of ``torch.device``; an explicit ``devices`` list may name
 one device more than once (the CPU tests stand eight entries of the CPU in
@@ -18,7 +18,7 @@ written out as plain tensor movement in a fixed order:
   * ``psum``       — a sum in shard order on the axis' first device
     (:func:`psum`), copied on to the others where they need it;
   * ``all_gather`` — concatenation on the axis' first device
-    (:meth:`Placed.gather`).
+    (:func:`all_gather`, :meth:`Placed.gather`).
 
 None of them reads a value to the host. :func:`run_on` issues the work of
 each device from its own thread under that device (and its current
@@ -139,15 +139,18 @@ class Placed:
     def local(self, r: int, c: int) -> torch.Tensor:
         return self.pieces[r, c]
 
-    def gather(self) -> torch.Tensor:
-        """The whole array on the mesh's first device: the pieces along
-        the sharded axis concatenated there (an all-gather)."""
-        mesh, axis = self.sharding
-        first = mesh.devices[0, 0]
+    def shards(self) -> List[torch.Tensor]:
+        """The pieces along the sharded axis, on that axis' devices
+        (``Mesh.axis_devices``)."""
+        axis = self.sharding.axis
         if axis is None:
-            return self.pieces[0, 0]
-        row = (self.pieces[0, :] if axis == MODEL_AXIS else self.pieces[:, 0])
-        return torch.cat([p.to(first, non_blocking=True) for p in row])
+            return [self.pieces[0, 0]]
+        return list(self.pieces[0, :] if axis == MODEL_AXIS
+                    else self.pieces[:, 0])
+
+    def gather(self) -> torch.Tensor:
+        """The whole array on the mesh's first device (an all-gather)."""
+        return all_gather(self.shards())
 
 
 def device_put(x: torch.Tensor, sharding: Sharding) -> Placed:
@@ -175,6 +178,13 @@ def device_put(x: torch.Tensor, sharding: Sharding) -> Placed:
     return Placed(sharding, pieces, x.shape)
 
 
+def all_gather(parts: Sequence[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """Per-shard pieces concatenated along ``dim`` in shard order, on the
+    first shard's device."""
+    dev = parts[0].device
+    return torch.cat([p.to(dev, non_blocking=True) for p in parts], dim)
+
+
 def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """Sum of per-shard values in shard order, on the first shard's device."""
     dev = parts[0].device
@@ -184,19 +194,31 @@ def psum(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def on_device(device: torch.device):
+    """The context that makes ``device`` current (for a card: its current
+    stream takes the kernels issued inside)."""
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
 def _on_device(device: torch.device, fn: Callable, entries: List[int]):
     """``fn(i, device)`` for each mesh entry i of ``device``, in order,
     under that device; an entry's error is kept and the next runs."""
     out = {}
-    ctx = (torch.cuda.device(device) if device.type == "cuda"
-           else contextlib.nullcontext())
-    with ctx:
+    with on_device(device):
         for i in entries:
             try:
                 out[i] = (fn(i, device), None)
             except Exception as e:  # noqa: BLE001 — re-raised by run_on
                 out[i] = (None, e)
     return out
+
+
+def _issuer(i: int, device: torch.device):
+    """The thread that issues mesh entry ``i``: one per distinct device.
+    (The tests key it by entry, to run the threaded form on a mesh that
+    names the CPU several times.)"""
+    return device
 
 
 def run_on(devices: Sequence[torch.device], fn: Callable) -> list:
@@ -206,15 +228,16 @@ def run_on(devices: Sequence[torch.device], fn: Callable) -> list:
     a device named twice runs its entries one after the other, as its one
     stream would anyway. Every entry runs to its end; the first error, in
     entry order, is then raised: a failing shard fails the whole call."""
-    by_device = {}
+    groups = {}
     for i, d in enumerate(devices):
-        by_device.setdefault(d, []).append(i)
-    if len(by_device) == 1:
-        done = [_on_device(d, fn, idx) for d, idx in by_device.items()]
+        groups.setdefault(_issuer(i, d), []).append(i)
+    if len(groups) == 1:
+        done = [_on_device(devices[idx[0]], fn, idx)
+                for idx in groups.values()]
     else:
-        with ThreadPoolExecutor(max_workers=len(by_device)) as ex:
-            futures = [ex.submit(_on_device, d, fn, idx)
-                       for d, idx in by_device.items()]
+        with ThreadPoolExecutor(max_workers=len(groups)) as ex:
+            futures = [ex.submit(_on_device, devices[idx[0]], fn, idx)
+                       for idx in groups.values()]
             done = [f.result() for f in futures]
     results = {i: r for part in done for i, r in part.items()}
     for i in range(len(devices)):

@@ -337,13 +337,23 @@ def match_bank(scene_desc: torch.Tensor, scene_valid: torch.Tensor,
     in ``lax.top_k``'s order); fields are [V, Ms]. B scenes
     (``scene_desc [B, Ms, D]``) share the one product, [B·Ms, V·Mk]; the
     fields are then [B·V, Ms], the views of frame b at [b·V, (b+1)·V)."""
+    return _per_view(*_match_columns(scene_desc, scene_valid, bank_desc,
+                                     bank_valid, cfg), scene_desc.shape[-2])
+
+
+def _match_columns(scene_desc: torch.Tensor, scene_valid: torch.Tensor,
+                   bank_desc: torch.Tensor, bank_valid: torch.Tensor,
+                   cfg: DetectionConfig):
+    """:func:`match_bank`'s (model_idx, valid, dist_sq), each [B·Ms, V]
+    (scene key by view). The view-sharded batch concatenates its model
+    shards' along the view axis, which lays them out as one call over every
+    view would."""
     V, Mk, D = bank_desc.shape
     if scene_desc.shape[-1] != D:
         raise ValueError(
             f"scene descriptors are {scene_desc.shape[-1]}-D, the bank's "
             f"{D}-D: build the bank with the configuration's descriptor")
     flat = bank_desc.reshape(V * Mk, D)
-    Ms = scene_desc.shape[-2]
     scene_desc = scene_desc.reshape(-1, D)
     scene_valid = scene_valid.reshape(-1)
     s2 = (scene_desc * scene_desc).sum(-1, keepdim=True)
@@ -363,8 +373,16 @@ def match_bank(scene_desc: torch.Tensor, scene_valid: torch.Tensor,
               & (d2 < 1e30))
     else:
         raise ValueError(f"unknown match mode {cfg.match_mode!r}")
+    return idx, ok, d1
 
-    def per_view(t):                  # [B·Ms, V] → [B·V, Ms]
+
+def _per_view(idx: torch.Tensor, ok: torch.Tensor, d1: torch.Tensor,
+              Ms: int) -> Correspondences:
+    """:func:`_match_columns`' fields [B·Ms, V] as Correspondences
+    [B·V, Ms]."""
+    V = idx.shape[-1]
+
+    def per_view(t):
         return t.reshape(-1, Ms, V).transpose(1, 2).reshape(-1, Ms)
 
     return Correspondences(model_idx=per_view(idx), valid=per_view(ok),
