@@ -1,11 +1,13 @@
 """Full-size reference runs on the CPU for the FPFH chain, the generic
-path's options, the command-line flow and the lattice keypoints: the
-numbers ``chip_smoke.py`` phases 13 and 14 print beside the card's.
+path's options, the command-line flow, the lattice keypoints and the
+README's Python API: the numbers ``chip_smoke.py`` phases 13, 14 and 16
+print beside the card's.
 
     JAX_PLATFORMS=cpu python scripts/full_size_reference.py fpfh [--port-bank]
     JAX_PLATFORMS=cpu python scripts/full_size_reference.py options
     JAX_PLATFORMS=cpu python scripts/full_size_reference.py cli
     JAX_PLATFORMS=cpu python scripts/full_size_reference.py lattice
+    JAX_PLATFORMS=cpu python scripts/full_size_reference.py api
 
 ``fpfh``: the JAX package builds ``bench.py``'s 42-view FPFH bank
 (``synthetic.fpfh_bank_recipe``; tens of minutes on a CPU) and runs its
@@ -30,6 +32,13 @@ results phase 14.1 and 14.2 are held to.
 (``bench_config`` without the crop flags) and phase 7's table frame
 (``segmented_config``), both on the 42-view bench bank built by the port:
 the results phase 14.5 is held to.
+
+``api``: the README's Python API through each package's exports —
+``build_bank(model_xyz)`` at its defaults (42 SHOT views; the port builds
+it on the CPU and the JAX package loads its arrays),
+``make_cloud(scene_xyz, capacity=32768)`` on phase 5's frame's valid
+points strided to at most 32,768, ``detect(scene, bank, PRESETS["shot"])``
+— the result phase 16 is held to.
 """
 import argparse
 import dataclasses
@@ -57,9 +66,10 @@ def _err(T, G):
 def _report(label, res, n_sel, T, seconds):
     rot, trans = _err(np.asarray(res.full_pose), T)
     m = res.metrics
+    sel = "" if n_sel is None else f"n_selected {int(n_sel)}, "
     print(f"{label}: accepted {bool(res.accepted)}, view {int(res.view_idx)}, "
           f"rot_err {rot:.3f} deg, trans_err {trans * 1000:.3f} mm, "
-          f"n_selected {int(n_sel)}, scene points {int(m['scene_points'])}, "
+          f"{sel}scene points {int(m['scene_points'])}, "
           f"keys {int(m['scene_keypoints'])}, valid descriptors "
           f"{int(m['valid_descriptors'])}, matches {int(m['correspondences'])}"
           f", instances {int(m['instances'])} ({seconds:.0f} s)", flush=True)
@@ -116,8 +126,6 @@ def fpfh(port_bank: bool) -> None:
 
 
 def options() -> None:
-    import torch
-
     from tpu_joints_torch.core.cloud import make_cloud
     from tpu_joints_torch.modelbank.bank import build_bank
     from tpu_joints_torch.pipelines.detect import detect
@@ -133,8 +141,8 @@ def options() -> None:
                 {"keypoints": "iss"}, {"rg_backend": "voxel"}):
         t0 = time.time()
         res = detect(scene, bank, dataclasses.replace(cfg, **opt))
-        _report(f"port on the CPU, {opt or 'phase 6'}", res, torch.tensor(0),
-                T, time.time() - t0)
+        _report(f"port on the CPU, {opt or 'phase 6'}", res, None, T,
+                time.time() - t0)
 
 
 def cli() -> None:
@@ -230,10 +238,54 @@ def lattice() -> None:
                 time.time() - t0)
 
 
+API_CAPACITY = 32768
+
+
+def api() -> None:
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from tpu_joints.config import PRESETS as JPRESETS
+    from tpu_joints.core.cloud import make_cloud as jmake_cloud
+    from tpu_joints.modelbank import ModelBank as JModelBank
+    from tpu_joints.pipelines import detect as jdetect
+    from tpu_joints_torch.config import PRESETS
+    from tpu_joints_torch.core.cloud import make_cloud
+    from tpu_joints_torch.modelbank import build_bank
+    from tpu_joints_torch.pipelines import detect
+
+    T = syn.bench_pose()
+    xyz, valid = syn.frame(T, 42, with_table=False)
+    scene_xyz = syn.scene_points(xyz[valid], API_CAPACITY)
+    print(f"scene: {int(valid.sum())} valid points, {len(scene_xyz)} kept",
+          flush=True)
+    t0 = time.time()
+    bank = build_bank(syn.joint_model(), device="cpu")
+    print(f"port bank: {bank.n_views} views, desc {tuple(bank.desc.shape)} "
+          f"in {time.time() - t0:.0f} s", flush=True)
+    t0 = time.time()
+    res = detect(make_cloud(scene_xyz, capacity=API_CAPACITY, device="cpu"),
+                 bank, PRESETS["shot"])
+    _report("port on the CPU, README API", res, None, T, time.time() - t0)
+    arrays = bank.to_numpy()
+    jb = JModelBank(**{k: jnp.asarray(arrays[k]) for k in ARRAYS},
+                    params_hash=bank.params_hash)
+    t0 = time.time()
+    res = jdetect(jmake_cloud(scene_xyz, capacity=API_CAPACITY), jb,
+                  JPRESETS["shot"])
+    _report("JAX on the CPU, port bank, README API", res, None, T,
+            time.time() - t0)
+    print(f"JAX full_pose {np.asarray(res.full_pose).tolist()}, fitness "
+          f"{float(res.fitness)}", flush=True)
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("fpfh", "options", "cli", "lattice"))
+    ap.add_argument("what", choices=("fpfh", "options", "cli", "lattice",
+                                     "api"))
     ap.add_argument("--port-bank", action="store_true")
     a = ap.parse_args()
     {"fpfh": lambda: fpfh(a.port_bank), "options": options, "cli": cli,
-     "lattice": lattice}[a.what]()
+     "lattice": lattice, "api": api}[a.what]()

@@ -24,6 +24,7 @@ same columns of one call over all 42.
 from __future__ import annotations
 
 import dataclasses
+import importlib
 import os
 import sys
 
@@ -42,7 +43,7 @@ from tpu_joints_torch.distributed import (detect_batch, make_mesh,  # noqa: E402
 from tpu_joints_torch.distributed import mesh as mesh_mod  # noqa: E402
 from tpu_joints_torch.modelbank.bank import build_bank  # noqa: E402
 from tpu_joints_torch.neighbors import pallas_knn as pk  # noqa: E402
-from tpu_joints_torch.pipelines import detect as D  # noqa: E402
+D = importlib.import_module("tpu_joints_torch.pipelines.detect")  # noqa: E402
 from tpu_joints_torch.recognize import hough as H  # noqa: E402
 from tpu_joints_torch.serve.batching import tree_map  # noqa: E402
 

@@ -20,6 +20,7 @@ package's HV holds about 10 GB at this size):
 """
 import argparse
 import dataclasses
+import importlib
 import os
 import sys
 import time
@@ -40,7 +41,7 @@ from tpu_joints.pipelines import detect as _jpkg  # noqa: E402,F401
 from tpu_joints.serve import DetectionService as JService  # noqa: E402
 from tpu_joints_torch import synthetic as syn  # noqa: E402
 from tpu_joints_torch.modelbank import bank as tbank  # noqa: E402
-from tpu_joints_torch.pipelines import detect as tdet  # noqa: E402
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")  # noqa: E402
 from tpu_joints_torch.serve import DetectionService as TService  # noqa: E402
 
 ARRAYS = ("view_xyz", "view_mask", "key_xyz", "key_valid", "desc", "rf",

@@ -57,7 +57,7 @@ from tpu_joints_torch.modelbank import bank as tbank
 from tpu_joints_torch.modelbank import scanner as tscanner
 from tpu_joints_torch.neighbors.bruteforce import knn
 from tpu_joints_torch.pipelines import cluster_tree as ttree
-from tpu_joints_torch.pipelines import detect as tdet
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 from tpu_joints_torch.pipelines import ingest as tingest
 
 jdet = importlib.import_module("tpu_joints.pipelines.detect")

@@ -43,7 +43,7 @@ from tpu_joints_torch.core.cloud import Cloud
 from tpu_joints_torch.filters.filters import (compact_cloud, compact_indices,
                                               uniform_sample_mask)
 from tpu_joints_torch.modelbank import bank as tbank
-from tpu_joints_torch.pipelines import detect as tdet
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 from tpu_joints_torch.pipelines.ingest import ingest_organized_blocks
 
 jdet = importlib.import_module("tpu_joints.pipelines.detect")

@@ -42,9 +42,9 @@ from tpu_joints.modelbank.bank import build_bank as jbuild_bank
 from tpu_joints_torch import config as tconfig
 from tpu_joints_torch import synthetic as syn
 from tpu_joints_torch.modelbank import bank as tbank
-from tpu_joints_torch.pipelines import detect as tdet
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 from tpu_joints_torch.segment import organized as torg
-from tpu_joints_torch.segment import region_growing as trg
+trg = importlib.import_module("tpu_joints_torch.segment.region_growing")
 
 jdet = importlib.import_module("tpu_joints.pipelines.detect")
 BANK_KW = dict(descriptor="shot", descr_radius=0.06, rf_radius=0.06,

@@ -79,6 +79,22 @@ def test_umeyama_batched_and_zero_weights_give_identity():
         np.testing.assert_allclose(out[c], ref, rtol=0, atol=1e-5)
 
 
+def test_umeyama_sources_at_one_point_match():
+    """Every weighted source at one point (Hough matches piled onto one
+    model key) makes the cross covariance exactly 0: the JAX package's SVD
+    then returns the identity rotation, and the port does the same, with
+    the translation taking the centroids onto each other."""
+    rng = np.random.default_rng(7)
+    src = np.repeat(rng.normal(size=(1, 3)), 5, axis=0).astype(np.float32)
+    dst = rng.normal(size=(5, 3)).astype(np.float32)
+    w = np.array([1, 1, 0.5, 0, 2], np.float32)
+    ref = np.asarray(jtr.umeyama(jnp.asarray(src), jnp.asarray(dst),
+                                 jnp.asarray(w)))
+    np.testing.assert_array_equal(ref[:3, :3], np.eye(3, dtype=np.float32))
+    out = ttr.umeyama(_t(src), _t(dst), _t(w)).numpy()
+    np.testing.assert_allclose(out, ref, rtol=0, atol=1e-6)
+
+
 def test_compose_invert_geodesic_match():
     rng = np.random.default_rng(9)
     A, B = random_rigid(rng), random_rigid(rng)

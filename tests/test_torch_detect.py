@@ -26,9 +26,9 @@ from tpu_joints_torch import config as tconfig
 from tpu_joints_torch import synthetic as syn
 from tpu_joints_torch.core.cloud import Cloud
 from tpu_joints_torch.modelbank import bank as tbank
-from tpu_joints_torch.pipelines import detect as tdet
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 from tpu_joints_torch.pipelines.ingest import ingest_organized_blocks
-from tpu_joints_torch.recognize import icp as ticp
+ticp = importlib.import_module("tpu_joints_torch.recognize.icp")
 from tpu_joints_torch.recognize.matching import Correspondences
 
 BANK_KW = dict(descriptor="shot", descr_radius=0.06, rf_radius=0.06,
@@ -114,6 +114,35 @@ def test_shot_and_board_frames_match(features):
     np.testing.assert_array_equal(ft.rf_ok.numpy(), ok)
     np.testing.assert_allclose(ft.rf.numpy()[ok], np.asarray(fj.rf)[ok],
                                rtol=0, atol=1e-4)
+
+
+def test_shot_lrf_and_nbr_mask_match():
+    """The SHOT frame on random supports (some padded out, some past the
+    radius): ``nbr_mask`` of the support weights equal to the JAX
+    package's; frames within 1e-4 where defined, flags equal."""
+    from tpu_joints.features import lrf as jlrf
+    from tpu_joints_torch.features import lrf as tlrf
+
+    rng = np.random.default_rng(3)
+    M, K, radius = 64, 32, 0.06
+    key = rng.normal(scale=0.1, size=(M, 3)).astype(np.float32)
+    nbr = (key[:, None] + rng.normal(scale=0.03, size=(M, K, 3))
+           ).astype(np.float32)
+    valid = rng.uniform(size=(M, K)) > 0.2
+    valid[:4, 3:] = False                       # too few for a frame
+    d = np.linalg.norm(nbr - key[:, None], axis=-1)
+    w = (np.maximum(radius - d, 0) * valid).astype(np.float32)
+    np.testing.assert_array_equal(tlrf.nbr_mask(_t(w)).numpy(),
+                                  np.asarray(jlrf.nbr_mask(jnp.asarray(w))))
+    assert 0 < float(tlrf.nbr_mask(_t(w)).numpy().mean()) < 1
+    rj, okj = jlrf.shot_lrf(jnp.asarray(key), jnp.asarray(nbr),
+                            jnp.asarray(valid), radius)
+    rt, okt = tlrf.shot_lrf(_t(key), _t(nbr), _t(valid), radius)
+    ok = np.asarray(okj)
+    np.testing.assert_array_equal(okt.numpy(), ok)
+    assert ok.sum() > M // 2 and not ok[:4].any()
+    np.testing.assert_allclose(rt.numpy()[ok], np.asarray(rj)[ok], rtol=0,
+                               atol=1e-4)
 
 
 def test_match_bank_matches(problem, features):

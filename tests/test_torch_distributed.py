@@ -12,6 +12,7 @@ equal and sorted distances rtol 1e-5 / atol 1e-7. The batch, the mesh
 server and ``serve --devices`` are in ``test_torch_distributed_batch.py``.
 """
 import contextlib
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -28,7 +29,7 @@ from tpu_joints.distributed import halo_radius_neighbors as jhalo
 from tpu_joints_torch import distributed as tdist
 from tpu_joints_torch.core.cloud import make_cloud
 from tpu_joints_torch.neighbors import bruteforce as tbf
-from tpu_joints_torch.recognize import icp as ticp
+ticp = importlib.import_module("tpu_joints_torch.recognize.icp")
 
 CPU8 = [torch.device("cpu")] * 8
 

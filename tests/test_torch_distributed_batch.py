@@ -46,7 +46,7 @@ from tpu_joints_torch import config as tconfig
 from tpu_joints_torch import distributed as tdist
 from tpu_joints_torch.core.cloud import Cloud, make_cloud
 from tpu_joints_torch.modelbank import bank as tbank
-from tpu_joints_torch.pipelines import detect as tdet
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 from tpu_joints_torch.recognize.matching import Correspondences
 from tpu_joints_torch.serve import DetectionService
 from tpu_joints_torch.serve.depth import depth_to_cloud

@@ -53,7 +53,7 @@ from tpu_joints_torch.features import fpfh as tfpfh
 from tpu_joints_torch.features import normals as tnormals
 from tpu_joints_torch.modelbank import bank as tbank
 from tpu_joints_torch.neighbors.bruteforce import radius_neighbors
-from tpu_joints_torch.pipelines import detect as tdet
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 from tpu_joints_torch.serve import DetectionService
 
 jdet = importlib.import_module("tpu_joints.pipelines.detect")

@@ -30,7 +30,7 @@ from tpu_joints_torch import synthetic as syn
 from tpu_joints_torch.core import cloud as tcloud
 from tpu_joints_torch.modelbank import bank as tbank
 from tpu_joints_torch.neighbors import pallas_knn as pk
-from tpu_joints_torch.pipelines import detect as tdet
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 from tpu_joints_torch.recognize import matching as tmatch
 
 BANK_KW = dict(descriptor="shot", descr_radius=0.06, rf_radius=0.06,

@@ -21,7 +21,7 @@ from tests.util import joint_points
 from tpu_joints.core.cloud import make_cloud as jmake_cloud
 from tpu_joints_torch.core.cloud import make_cloud
 from tpu_joints_torch.recognize import hv as thv
-from tpu_joints_torch.recognize import icp as ticp
+ticp = importlib.import_module("tpu_joints_torch.recognize.icp")
 
 jhv = importlib.import_module("tpu_joints.recognize.hv")
 jicp = importlib.import_module("tpu_joints.recognize.icp")

@@ -138,6 +138,59 @@ def test_knnk_plain_on_split_stressing_orders(case, k):
         assert (dc[:, 0] == 0).all()
 
 
+@pytest.mark.parametrize("k", [1, 2, 16, 30, 32])
+@pytest.mark.parametrize("shape", [(100, 300, 0.25), (64, 256, 1.0),
+                                   (40, 10, 0.25)])
+def test_knn_pallas_matches_the_tpu_kernel(k, shape):
+    """The port's ``knn_pallas`` (the TPU kernel's entry: K1 at k = 1, K2
+    above) on CPU tensors against the JAX package's in interpret mode, with
+    masked sources, rows with no valid source and N < k: its distances and
+    indices equal its plain version's bit for bit; the Pallas kernel's
+    best-list, put in the contract's order (its indices by the contract's
+    distance, ties to the lowest index), has the same indices in every
+    slot, and distances within 2 ulp (the interpreted body's fused
+    multiply-adds, see ``test_knnk_plain_matches_pallas_interpret``)."""
+    M, N, masked = shape
+    q, s, m = _points(M, N, 11 * k + M + N, masked)
+    d, i = pk.knn_pallas(_t(q), _t(s), k, _t(m))
+    dr, ir = (pk.nn1_reference(_t(q), _t(s), _t(m)) if k == 1
+              else pk.knnk_reference(_t(q), _t(s), k, _t(m)))
+    assert d.shape == i.shape == (M, k)
+    assert torch.equal(d, dr) and torch.equal(i, ir)
+    dp, ip = knn_pallas(jnp.asarray(q), jnp.asarray(s), k,
+                        source_mask=jnp.asarray(m), tm=64, tn=256,
+                        interpret=True)
+    dp, ip = np.asarray(dp), np.asarray(ip)
+    full = [q[:, c:c + 1] - s[None, :, c] for c in range(3)]
+    pen = np.where(m, np.float32(0.0), np.float32(3e38))
+    full = ((full[0] * full[0] + full[1] * full[1]) + full[2] * full[2]) + pen
+    valid = dp < 1e30
+    key = np.where(valid, np.take_along_axis(full, ip, 1), np.inf)
+    order = np.lexsort((ip, key), axis=1)
+    ip = np.take_along_axis(ip, order, 1)
+    dp = np.take_along_axis(dp, order, 1)
+    np.testing.assert_array_equal(i.numpy(), ip)
+    np.testing.assert_array_equal(d.numpy() < 1e30, dp < 1e30)
+    np.testing.assert_allclose(d.numpy(), dp, rtol=2.0 ** -22, atol=0)
+    if not m.any():
+        assert (i.numpy() == 0).all() and (d.numpy() == np.float32(3e38)).all()
+
+
+def test_knn_pallas_takes_1_to_32(monkeypatch):
+    """k outside 1..32 raises, as the TPU kernel's callers never send it;
+    the TPU tiling and interpret mode are accepted; without a card
+    ``pallas_available`` is false and builds nothing."""
+    q = torch.zeros(4, 3)
+    for k in (0, 33):
+        with pytest.raises(ValueError, match="1 <= k <= 32"):
+            pk.knn_pallas(q, q, k)
+    d, i = pk.knn_pallas(q, q, 1, tm=8, tn=16, interpret=True)
+    assert d.shape == i.shape == (4, 1)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(pk, "build_all", lambda: pytest.fail("built"))
+    assert pk.pallas_available() is False
+
+
 def test_build_key_covers_shared_headers(tmp_path, monkeypatch):
     """Editing a header under csrc/ changes every kernel's build key, so a
     stale library in _build/ is never loaded for a changed header."""

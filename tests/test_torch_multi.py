@@ -26,7 +26,7 @@ from tpu_joints_torch import config as tconfig
 from tpu_joints_torch import synthetic as syn
 from tpu_joints_torch.core.cloud import Cloud, make_cloud
 from tpu_joints_torch.modelbank import bank as tbank
-from tpu_joints_torch.pipelines import detect as tdet
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 from tpu_joints_torch.pipelines import multi as tmulti
 from tpu_joints_torch.recognize.hough import Instances
 

@@ -9,6 +9,8 @@ kNN graph differs in arithmetic only: the JAX path expands
 |q|²+|s|²−2q·s, the port's kernel K2 takes the difference form; no
 neighbour set or edge differed on these inputs (labels are equal).
 """
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +25,7 @@ from tpu_joints_torch import synthetic as syn
 from tpu_joints_torch.core.cloud import make_cloud
 from tpu_joints_torch.modelbank.scanner import render_views
 from tpu_joints_torch.recognize.obb import oriented_bounding_box_clustered as tobb
-from tpu_joints_torch.segment import region_growing as trg_mod
+trg_mod = importlib.import_module("tpu_joints_torch.segment.region_growing")
 from tpu_joints_torch.segment.region_growing import Clusters as TClusters
 from tpu_joints_torch.segment.region_growing import cluster_curvature_filter as tfilter
 from tpu_joints_torch.segment.region_growing import region_growing as trg

@@ -45,7 +45,7 @@ from tpu_joints_torch import config as tconfig
 from tpu_joints_torch import native as tnative
 from tpu_joints_torch import synthetic as syn
 from tpu_joints_torch.modelbank import bank as tbank
-from tpu_joints_torch.pipelines import detect as tdet
+tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 from tpu_joints_torch.segment import organized as torg
 from tpu_joints_torch.serve import (DetectionService, FakeDepthCamera,
                                     depth_to_cloud, make_server)

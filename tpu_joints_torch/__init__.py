@@ -20,3 +20,5 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+from tpu_joints_torch.core.cloud import Cloud  # noqa: E402,F401

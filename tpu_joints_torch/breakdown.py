@@ -38,6 +38,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import importlib
 import statistics
 import subprocess
 import time
@@ -116,7 +117,7 @@ def main() -> None:
     from tpu_joints_torch.core.cloud import SENTINEL, Cloud, make_cloud
     from tpu_joints_torch.features.normals import estimate_normals
     from tpu_joints_torch.modelbank.bank import build_bank
-    from tpu_joints_torch.pipelines import detect as D
+    D = importlib.import_module("tpu_joints_torch.pipelines.detect")
     from tpu_joints_torch.pipelines import ingest as I
     from tpu_joints_torch.pipelines import multi
     from tpu_joints_torch.pipelines.ingest import ingest_organized_blocks

@@ -86,7 +86,7 @@ def kabsch_rotation(H: torch.Tensor) -> torch.Tensor:
     V is the closed-form eigenbasis of HᵀH, and u0 = Hv0/|Hv0|, u1 =
     Gram-Schmidt(Hv1), u2 = u0 × u1. Building u2 as a cross product IS the
     reflection fix: it equals the SVD's third column when det H > 0 and its
-    negation otherwise.
+    negation otherwise. H = 0 gives the identity, as the SVD does.
     """
     dtype = H.dtype
     # float64 from here to R: HᵀH squares H's condition number, and Hough
@@ -110,7 +110,11 @@ def kabsch_rotation(H: torch.Tensor) -> torch.Tensor:
     u1 = torch.where(n1 > 1e-12 * torch.clamp_min(norm(h0, keepdim=True), 1e-30),
                      u1 / torch.clamp_min(n1, 1e-30), alt)
     U = torch.stack([u0, u1, cross(u0, u1)], dim=-1)
-    return (U @ V.transpose(-1, -2)).to(dtype)
+    # H = 0 (every source at one point, e.g. matches piled onto one model
+    # key): the reference's SVD returns U = V = I, so R = I
+    zero = (H == 0).all(dim=-1).all(dim=-1)
+    R = torch.where(zero[..., None, None], eye, U @ V.transpose(-1, -2))
+    return R.to(dtype)
 
 
 def compose(*Ts: torch.Tensor) -> torch.Tensor:

@@ -35,6 +35,7 @@ partition the first.
 """
 from __future__ import annotations
 
+import importlib
 from typing import List
 
 import torch
@@ -47,8 +48,10 @@ from tpu_joints_torch.distributed.mesh import (MODEL_AXIS, Mesh, Placed,
                                                replicated, run_on,
                                                scene_sharding)
 from tpu_joints_torch.modelbank.bank import _ARRAYS, ModelBank
-from tpu_joints_torch.pipelines import detect as D
 from tpu_joints_torch.serve.batching import tree_zip
+
+# the package exports a function named like this module
+D = importlib.import_module("tpu_joints_torch.pipelines.detect")
 
 # the bank arrays every device holds whole; the rest are split by views
 _REPLICATED = ("poses", "model_xyz", "model_mask")

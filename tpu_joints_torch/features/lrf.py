@@ -22,12 +22,17 @@ def _disambiguate(axis: torch.Tensor, rel: torch.Tensor,
     support (``>= 0`` votes positive); the weighted projection sum breaks
     exact count ties."""
     dots = torch.einsum("mki,mi->mk", rel, axis)
-    votes = (w > 0).to(torch.float32)
+    votes = nbr_mask(w)
     pos = ((dots >= 0) * votes).sum(1)
     neg = ((dots < 0) * votes).sum(1)
     ssum = (dots * w).sum(1)
     flip = torch.where(pos == neg, ssum < 0, neg > pos)
     return torch.where(flip[:, None], -axis, axis)
+
+
+def nbr_mask(w: torch.Tensor) -> torch.Tensor:
+    """1.0 where a support point is real (weight > 0), else 0."""
+    return (w > 0).to(torch.float32)
 
 
 def shot_lrf(key_xyz: torch.Tensor, nbr_xyz: torch.Tensor,

@@ -19,6 +19,9 @@ masked ones; the k smallest per row in ascending order, ties to the lowest
 source index; a slot without a valid source is ``(3e38, 0)``. Returns
 ``(dist_sq f32[M, k], idx i32[M, k])``.
 
+:func:`knn_pallas` is the TPU kernel's own entry under its name and
+signature: it sends k = 1 to ``nn1`` and 2 <= k <= 32 to ``knnk``.
+
 ``nn1``, ``nn1_batched`` and ``knnk`` pick by the query tensor's device
 only: CPU tensors take the plain versions :func:`nn1_reference` /
 :func:`nn1_batched_reference` / :func:`knnk_reference`, CUDA tensors launch
@@ -341,3 +344,33 @@ def knnk(query: torch.Tensor, source: torch.Tensor, k: int,
 
 knnk.launches = 0
 knnk.by_device = Counter()
+
+
+def knn_pallas(query: torch.Tensor, source: torch.Tensor, k: int,
+               source_mask: Optional[torch.Tensor] = None, tm: int = 256,
+               tn: int = 2048, interpret: bool = False
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact kNN over 3-D points under the TPU kernel's name and contract:
+    ``(dist_sq f32[M, k], idx i32[M, k])``, a slot without a valid source
+    ``(3e38, 0)``. k = 1 runs K1 (:func:`nn1`), 2 <= k <= 32 K2
+    (:func:`knnk`), each choosing its kernel or plain version by the
+    tensor's device. ``tm``, ``tn`` (the TPU's tiles) and ``interpret``
+    (Pallas's interpret mode) are accepted and ignored."""
+    del tm, tn, interpret
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"knn_pallas takes 1 <= k <= {MAX_K}, got k={k}")
+    if k == 1:
+        return nn1(query, source, source_mask)
+    return knnk(query, source, k, source_mask)
+
+
+def pallas_available() -> bool:
+    """True when a CUDA card is visible and both kernels' libraries build
+    and bind."""
+    if not torch.cuda.is_available():
+        return False
+    try:
+        build_all()
+    except (RuntimeError, OSError):
+        return False
+    return True

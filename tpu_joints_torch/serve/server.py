@@ -35,6 +35,7 @@ gets one frame fewer, or none). A failing device fails its batch.
 from __future__ import annotations
 
 import base64
+import importlib
 import json
 import threading
 import time
@@ -48,9 +49,11 @@ from tpu_joints_torch.config import DetectionConfig
 from tpu_joints_torch.core.cloud import Cloud, make_cloud
 from tpu_joints_torch.modelbank.bank import ModelBank, bank_to
 from tpu_joints_torch.native import ingest_native
-from tpu_joints_torch.pipelines import detect as detect_mod
 from tpu_joints_torch.serve.batching import FrameBatcher, to_host, tree_zip
 from tpu_joints_torch.serve.depth import FakeDepthCamera, depth_to_cloud
+
+# the package exports a function named like this module
+detect_mod = importlib.import_module("tpu_joints_torch.pipelines.detect")
 
 
 class BadRequest(Exception):
