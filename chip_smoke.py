@@ -17,8 +17,8 @@ against the plain version at every timed shape and timed there in turns
 with this tree's kernels (other, this, this, other). ``--yardsticks``
 re-times the plain version and cdist+topk at every timed shape; by default
 they are timed only at the kernels' main shapes (phase 3's K1 ICP shape and
-batch shape, phase 6's K2 region-growing shape) and at phase 16's new
-shapes; the other shapes' yardsticks stand in PERF.md.
+batch shape, phase 6's K2 region-growing shape); the other shapes'
+yardsticks stand in PERF.md.
 
 Phases (any failure raises and the exit code is non-zero):
   1. device  — card name and power limit (nvidia-smi);
@@ -105,17 +105,22 @@ Phases (any failure raises and the exit code is non-zero):
                streaming (bench_config, crop off, 3 bench frames, seeds 0-2,
                one at a time): each reply within the gate, equal to a direct
                detect_organized on the unprojected frame at the server's
-               block, one host read per request, /healthz naming the card
-               and counting 3; host decode + unproject, device call and
-               round trip; 12.2 micro-batched (batch_max 8): phase 11's 8
-               jittered frames at once, fewer batches than frames, one read
-               per batch, every reply equal to the streaming service's under
-               phase 11's gate; 12.3 segmented + clustered box (4 table
-               frames, batch_max 4, 8192 lanes so that the server's block
-               rule picks the bench's block 4): each reply equal to its own
+               block, one host read per request, request 0 capturing the
+               one graph, /healthz naming the card and counting 3; host
+               decode + unproject, device call and round trip; then the
+               warm-up with a depth shape (it replays that graph); 12.2
+               micro-batched (batch_max 8): phase 11's 8 jittered frames at
+               once, fewer batches than frames, one read per batch, every
+               reply equal to the streaming service's under phase 11's
+               gate; 12.3 segmented + clustered box (4 table frames,
+               batch_max 4, 8192 lanes so that the server's block rule
+               picks the bench's block 4): each reply equal to its own
                single run, the box within 1e-4, phase 11's share accepted and
-               every accepted pose within the gate, every K2 launch
-               rechecked; the same at 2560 lanes (block 8) on one frame,
+               every accepted pose within the gate, one read per batch of
+               its region growings' change flags besides the reply's, the
+               two K2 launches of the clustered box per frame of every
+               capture's warm-up rechecked; the same at 2560 lanes (block
+               8) on one frame,
                reported (an accepted pose must pass the gate);
                12.4 GO-HV (the two-instance frame and a jittered copy,
                batch_max 2): the GOOD list and the verified count equal to
@@ -218,16 +223,52 @@ Phases (any failure raises and the exit code is non-zero):
                fitness and accepted printed; launches by shape and host
                syncs (equal to the region growings' reads), every launch of
                a shape no earlier path launched rechecked bit for bit and
-               timed (5 calls, with its plain version and cdist+topk);
+               timed (5 calls; its plain version and cdist+topk with
+               --yardsticks);
                the result held to the JAX package's on the
                CPU (API_CPU_JAX: flag, view, errors within 0.1 deg / 1 mm;
                the reference accepts that pose about 9 deg off the truth,
                so no truth gate); then neighbors.pallas_knn.knn_pallas, the
                TPU kernel's own entry, at k = 1 and k = 16 on the scene
                (32,768 x 32,768), each one launch of K1 / K2, bit-equal to
-               nn1 / knnk and to the plain versions; median of 3 detects,
-               device busy.
-The paths' timed frames are 3 each. Every timing gives the kernel (CUDA
+               nn1 / knnk and to the plain versions. Phase 17 times the
+               detect (10 runs in turns with its graph) and its device
+               busy time.
+ 17. captured paths — the one-dispatch entries (core/graphs.py: one CUDA
+               graph per entry, configuration, shapes and bank) against the
+               eager chains on the same inputs, at the full width of their
+               phases: detect_organized(fused=True) on phase 5's, 9's, 10's
+               and 7's frames, detect_parts_organized (phase 8),
+               detect_organized_batch (phase 11's 8 frames) and detect_fused
+               (phase 16's README call). For each: capture seconds, the
+               pool memory the graph allocated and the pool's growth; every
+               leaf of a replay torch.equal to the eager run's; K1/K2
+               kernels per replay from the profiler's kernel names (a
+               replay calls no wrapper) equal to the eager run's; host
+               syncs per replay (0, or the one read of the region growings'
+               change flags); eager against replay wall medians and
+               quartiles of 10 each in turns (eager, replay, replay, eager)
+               and each form's device busy time. After the segmented
+               capture the cache of the RANSAC plane's draw is emptied and
+               every free block of its size refilled with 0.5: none may
+               overlap the draw, and the replay must still equal the
+               eager chain (the graph holds the draw it reads). Then the
+               served paths from an empty graph cache with
+               warmup(depth_shape=(480, 640)) (serve --warm-depth):
+               streaming (3 requests), each reply's pose equal to the eager
+               chain's on its frame, and micro-batched (batch_max 8, every
+               batch size captured at start-up; 8 requests), every replayed
+               batch equal leaf for leaf to the eager batch of the frames it
+               held and each reply's pose to its frame's entry there; one
+               host read per device call.
+Phases 8 and 11 (and 14.5's batch) run the eager chains
+(``multi._detect_parts_organized_eager``,
+``detect._detect_organized_batch_eager``), whose launches the recorder can
+recheck; phase 17 runs their captured forms. The served paths of phases 12,
+13.3 and 15.1 (its single-card service) replay captured graphs: a request
+that needs a graph first captures it, and the recorder keeps the inputs of
+the eager warm-up before each capture (a call made while capturing holds no
+values). The paths' timed frames are 3 each. Every timing gives the kernel (CUDA
 events and profiler device time; its plain version and cdist+topk where
 re-timed, see ``--yardsticks``) beside the bound and the shape's launches
 per bank build, organized frame and generic frame. The kernels JSON line
@@ -464,23 +505,38 @@ class _Recorder:
     ``bruteforce.knnk`` (the kernels' entries from ``knn`` and
     ``knn_batched``) and keeps every call's inputs as (query, source, k,
     mask), so each launch of a path can be rechecked and timed afterwards.
-    It launches nothing itself: the wrapped functions count the launches."""
+    It launches nothing itself: the wrapped functions count the launches.
+    A call made while a CUDA graph is captured is not kept (its inputs hold
+    no values yet): a captured path is recorded by the eager warm-up that
+    runs before each capture."""
 
     def __init__(self, bruteforce):
         self.bf, self.calls = bruteforce, []
         self.real = (bruteforce.nn1, bruteforce.knnk, bruteforce.nn1_batched)
 
+    def _keep(self, call):
+        import torch
+
+        if not torch.cuda.is_current_stream_capturing():
+            self.calls.append(call)
+
     def nn1(self, query, source, source_mask=None):
-        self.calls.append((query, source, 1, source_mask))
+        self._keep((query, source, 1, source_mask))
         return self.real[0](query, source, source_mask)
 
     def nn1_batched(self, query, source, source_mask=None):
-        self.calls.append((query, source, 1, source_mask))
+        self._keep((query, source, 1, source_mask))
         return self.real[2](query, source, source_mask)
 
     def knnk(self, query, source, k, source_mask=None):
-        self.calls.append((query, source, k, source_mask))
+        self._keep((query, source, k, source_mask))
         return self.real[1](query, source, k, source_mask)
+
+    def counts(self):
+        """(K1, K1 batched, K2) calls kept."""
+        return (sum(q.ndim == 2 and k == 1 for q, _, k, _ in self.calls),
+                sum(q.ndim == 3 for q, _, _, _ in self.calls),
+                sum(k > 1 for _, _, k, _ in self.calls))
 
     def k2_calls(self):
         return [c for c in self.calls if c[2] > 1]
@@ -695,14 +751,11 @@ def _small_hv(dev, card):
                                f"(H = {H})")
 
 
-def _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card):
-    """The organized, generic and segmented paths at small size (320×240
-    frame, level-0 bank) on the card and on the CPU (plain versions): poses
-    within 2e-3, both accepted, both within the gate. The two-part path at
-    that size finds no acceptable pose on either device (most Hough peaks
-    rest on 3-5 matches), so there the candidate field is held equal: the
-    views and their validity, each half its own part's."""
-    import numpy as np
+def _small_on(d):
+    """The organized, generic, segmented and two-part paths at small size
+    (320×240 frame, level-0 bank) on device ``d``, with the configurations
+    of phases 5-8: ({path: result}, the two-part result). The CPU's run
+    needs no card, so ``main`` runs it in a thread during the build."""
     import torch
 
     from tpu_joints_torch import synthetic as syn
@@ -718,32 +771,48 @@ def _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card):
                                   "scene_capacity": capacity,
                                   "scene_key_capacity": 256})
 
-    s_org, s_gen = small(det_cfg, 3072), small(gen_cfg, 3072)
-    s_seg, s_two = small(seg_cfg, 3072), small(two_cfg, 3072)
-    model_s = syn.joint_model(3000, 1800)
+    det_cfg = dataclasses.replace(syn.bench_config(), segment_scene=False,
+                                  remove_plane=False)
+    s_org, s_gen = small(det_cfg, 3072), small(syn.generic_config(), 3072)
+    s_seg = small(syn.segmented_config(), 3072)
+    s_two = small(syn.two_part_config(), 3072)
+    T_gt = syn.bench_pose()
     kw = dict(syn.bench_bank_kwargs(s_org), level=0, resolution=64,
               key_capacity=64, icp_capacity=1024)
     xs, vs = syn.frame(T_gt, 42, with_table=False, width=320, height=240)
     xt, vt = syn.frame(T_gt, 42, with_table=True, width=320, height=240)
     pts = syn.scene_points(xs[vs], 3072)
-    out = {"organized": {}, "generic": {}, "segmented": {}}
-    two = {}
-    for d in (dev, torch.device("cpu")):
-        b = build_bank(model_s, **kw, device=d)
-        geo = dict(block=2, half_window=3,
-                   crop_lo=torch.as_tensor(syn.CROP_LO, device=d),
-                   crop_hi=torch.as_tensor(syn.CROP_HI, device=d))
-        r, _ = detect_organized(torch.as_tensor(xs, device=d),
-                                torch.as_tensor(vs, device=d), b, s_org, **geo)
-        out["organized"][d.type] = r
-        r = detect(make_cloud(pts, capacity=3072, device=d), b, s_gen)
-        out["generic"][d.type] = r
-        table = (torch.as_tensor(xt, device=d), torch.as_tensor(vt, device=d))
-        r, _ = detect_organized(*table, b, s_seg, **geo)
-        out["segmented"][d.type] = r
-        parts = syn.build_part_banks(s_two, device=d, level=0, resolution=64,
-                                     key_capacity=64, icp_capacity=1024)
-        _, two[d.type], _ = detect_parts_organized(*table, parts, s_two, **geo)
+    b = build_bank(syn.joint_model(3000, 1800), **kw, device=d)
+    geo = dict(block=2, half_window=3,
+               crop_lo=torch.as_tensor(syn.CROP_LO, device=d),
+               crop_hi=torch.as_tensor(syn.CROP_HI, device=d))
+    out = {}
+    out["organized"], _ = detect_organized(torch.as_tensor(xs, device=d),
+                                           torch.as_tensor(vs, device=d), b,
+                                           s_org, **geo)
+    out["generic"] = detect(make_cloud(pts, capacity=3072, device=d), b, s_gen)
+    table = (torch.as_tensor(xt, device=d), torch.as_tensor(vt, device=d))
+    out["segmented"], _ = detect_organized(*table, b, s_seg, **geo)
+    parts = syn.build_part_banks(s_two, device=d, level=0, resolution=64,
+                                 key_capacity=64, icp_capacity=1024)
+    _, two, _ = detect_parts_organized(*table, parts, s_two, **geo)
+    return out, two
+
+
+def _small_runs(dev, T_gt, card, cpu):
+    """The paths at small size (``_small_on``) on the card against ``cpu``,
+    the CPU's run (plain versions): poses within 2e-3, both accepted, both
+    within the gate. The two-part path at that size finds no acceptable
+    pose on either device (most Hough peaks rest on 3-5 matches), so there
+    the candidate field is held equal: the views and their validity, each
+    half its own part's."""
+    import numpy as np
+    import torch
+
+    runs = {"cuda": _small_on(dev), "cpu": cpu}
+    out = {path: {k: r[0][path] for k, r in runs.items()}
+           for path in ("organized", "generic", "segmented")}
+    two = {k: r[1] for k, r in runs.items()}
     for path, res in out.items():
         poses = {k: r.full_pose.cpu().numpy() for k, r in res.items()}
         diff = float(np.abs(poses["cuda"] - poses["cpu"]).max())
@@ -781,8 +850,7 @@ def _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card):
 def _timed_runs(run, n=3):
     import torch
 
-    for _ in range(2):
-        run()
+    run()
     times = []
     for _ in range(n):
         torch.cuda.synchronize()
@@ -951,6 +1019,7 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
 
     from tpu_joints_torch import native
     from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.core import graphs
     from tpu_joints_torch.neighbors import bruteforce
     from tpu_joints_torch.neighbors import pallas_knn as pk
     from tpu_joints_torch.pipelines.detect import (detect, detect_organized,
@@ -988,32 +1057,45 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
     def served(label, service, bodies):
         """Send ``bodies`` concurrently (one thread each) with every count
         taken from 0: (replies, round-trip ms, syncs flagged, recorder,
-        (K1, K1 batched, K2) launches, (lattice, graph) region-growing
-        reads). Every reply must be a 200."""
+        (K1, K1 batched, K2) launches of the eager warm-ups before this
+        call's captures, (lattice, graph) region-growing reads plus the
+        captured graphs' flag reads, the graphs captured). A request
+        replays the captured chain of its configuration, shapes and bank
+        (phase 17), captured by the first request that needs it: a replay
+        calls no wrapper, so the wrappers' counts (the warm-up's and the
+        capture's launches) are printed, the recorder's kept. Every reply
+        must be a 200."""
         pk.nn1.launches = pk.nn1_batched.launches = pk.knnk.launches = 0
         lattice.region_growing_lattice.host_checks = 0
         rg.region_growing.host_checks = 0
+        n_entries = len(graphs.entries())
+        flag_reads = sum(e.reads for e in graphs.entries())
         with _serving(service) as url, _Recorder(bruteforce) as rec:
             with ThreadPoolExecutor(len(bodies)) as ex:
                 out, syncs = _count_syncs(
                     lambda: list(ex.map(lambda b: _post(url, b), bodies)))
             health = _health(url)
-        n = (pk.nn1.launches, pk.nn1_batched.launches, pk.knnk.launches)
+        wrapped = (pk.nn1.launches, pk.nn1_batched.launches, pk.knnk.launches)
+        n = rec.counts()
+        new = graphs.entries()[n_entries:]
         reads = (lattice.region_growing_lattice.host_checks,
-                 rg.region_growing.host_checks)
+                 rg.region_growing.host_checks,
+                 sum(e.reads for e in graphs.entries()) - flag_reads)
         bad = [(st, r) for st, r, _ in out if st != 200]
         if bad:
             raise RuntimeError(f"{label}: the server answered {bad[0]}")
-        print(f"# {label}: {len(bodies)} requests, nn1 launched {n[0]} times, "
-              f"nn1_batched {n[1]}, knnk {n[2]}; launches by shape: "
+        print(f"# {label}: {len(bodies)} requests, {len(new)} graphs "
+              f"captured; the warm-ups launched nn1 {n[0]} times, "
+              f"nn1_batched {n[1]}, knnk {n[2]} (with the captures "
+              f"{wrapped}); launches by shape: "
               f"{dict(sorted(rec.shapes().items()))}; host synchronisations "
               f"flagged: {len(syncs)}, region-growing host reads (lattice, "
-              f"graph): {reads}; batches {service.n_batches}; /healthz "
-              f"{health} {card}", flush=True)
+              f"graph, captured flags): {reads}; batches {service.n_batches}; "
+              f"/healthz {health} {card}", flush=True)
         for msg in sorted(set(syncs))[:5]:
             print(f"#   sync: {msg}", flush=True)
         return ([r for _, r, _ in out], [t for _, _, t in out], syncs, rec, n,
-                reads, health)
+                reads, health, new)
 
     def recheck_new_shapes(label, rec, k2_all=False):
         """Recheck bit for bit, on its recorded inputs, the first launch of
@@ -1087,19 +1169,21 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
         xyz = depth_to_cloud(_decode_array(body, "depth"))
         np.isfinite(xyz).all(-1)
         host_ms.append((time.perf_counter() - t0) * 1e3)
+    svc = DetectionService(bank, det_cfg)
+    stream = []
+    for i, body in enumerate(bodies):     # request 0 captures the graph
+        out = served(f"phase 12.1 streaming request {i}", svc, [body])
+        stream.append(out)
+        if len(out[2]) != 1 or out[5] != (0, 0, 0) or len(out[7]) != (i == 0):
+            raise RuntimeError(f"streaming request {i} read the host "
+                               f"{len(out[2])} times, expected once, and "
+                               f"captured {len(out[7])} graphs")
     t0 = time.perf_counter()
     DetectionService(bank, det_cfg).warmup(depth_shape=(H, W))
     print(f"# phase 12 warmup (a 16-point cloud and the first view rendered "
-          f"to {W}x{H} depth) in {(time.perf_counter() - t0) * 1e3:.1f} ms "
-          f"{card}", flush=True)
-    svc = DetectionService(bank, det_cfg)
-    stream = []
-    for i, body in enumerate(bodies):
-        out = served(f"phase 12.1 streaming request {i}", svc, [body])
-        stream.append(out)
-        if len(out[2]) != 1 or out[5] != (0, 0):
-            raise RuntimeError(f"streaming request {i} read the host "
-                               f"{len(out[2])} times, expected once")
+          f"to {W}x{H} depth, which replays request 0's graph; phase 17 "
+          f"times a warm-up that captures) in "
+          f"{(time.perf_counter() - t0) * 1e3:.1f} ms {card}", flush=True)
     recheck_new_shapes("phase 12.1", stream[0][3])
     launches["served streaming"] = stream[0][3].shapes()
     health = stream[-1][6]
@@ -1136,10 +1220,10 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
     svc_b = DetectionService(bank, det_cfg, batch_max=8,
                              batch_window_ms=1000.0)
     replies = _Replies(svc_b)
-    outs, rt_b, syncs, rec, nb, reads, _ = served(
+    outs, rt_b, syncs, rec, nb, reads, _, _ = served(
         "phase 12.2 micro-batched 8 frames", svc_b, bodies)
     batches = svc_b.n_batches
-    if batches >= n_batch or len(syncs) != batches or reads != (0, 0):
+    if batches >= n_batch or len(syncs) != batches or reads != (0, 0, 0):
         raise RuntimeError(f"8 requests ran as {batches} batches with "
                            f"{len(syncs)} host reads")
     recheck_new_shapes("phase 12.2", rec)
@@ -1181,15 +1265,20 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
     svc_s = DetectionService(bank, seg_box_cfg, batch_max=4,
                              batch_window_ms=1000.0)
     replies = _Replies(svc_s)
-    outs, rt_s, syncs, rec, ns, reads, _ = served(
+    outs, rt_s, syncs, rec, ns, reads, _, new = served(
         "phase 12.3 segmented + clustered box, 4 frames", svc_s, bodies)
-    if (len(syncs) != sum(reads) + svc_s.n_batches or 0 in reads
-            or svc_s.n_batches >= 4
-            or len(rec.k2_calls()) != 2 * len(bodies)):
+    # each batch reads its graph's growings' flags once; each capture's
+    # warm-up runs the clustered box (2 K2 launches) frame by frame
+    warm_frames = sum(e.inputs[0].shape[0] * len(e.graphs) for e in new)
+    if (len(syncs) != reads[2] + svc_s.n_batches or reads != (0, 0,
+                                                               svc_s.n_batches)
+            or svc_s.n_batches >= 4 or not new
+            or len(rec.k2_calls()) != 2 * warm_frames):
         raise RuntimeError(f"the segmented batch read the host {len(syncs)} "
                            f"times (region growings {reads}, "
-                           f"{svc_s.n_batches} batches) and launched K2 "
-                           f"{len(rec.k2_calls())} times")
+                           f"{svc_s.n_batches} batches) and its warm-ups "
+                           f"launched K2 {len(rec.k2_calls())} times for "
+                           f"{warm_frames} frames")
     recheck_new_shapes("phase 12.3", rec, k2_all=True)
     time_served_shapes("phase 12.3", rec, [(4, 8192, 8192, 1),
                                            (131072, 4096, 1),
@@ -1248,9 +1337,9 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
     svc_h = DetectionService(bank, hv_cfg, batch_max=2,
                              batch_window_ms=1000.0)
     replies = _Replies(svc_h)
-    outs, rt_h, syncs, rec, nh, reads, _ = served(
+    outs, rt_h, syncs, rec, nh, reads, _, _ = served(
         "phase 12.4 GO-HV, 2 frames", svc_h, bodies)
-    if (len(syncs) != svc_h.n_batches or reads != (0, 0)
+    if (len(syncs) != svc_h.n_batches or reads != (0, 0, 0)
             or not any(c[0].ndim == 3 for c in rec.calls)):
         raise RuntimeError(f"the HV batch read the host {len(syncs)} times "
                            f"in {svc_h.n_batches} batches")
@@ -1321,9 +1410,9 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
     body = {"points_b64": base64.b64encode(gen_pts.tobytes()).decode(),
             "points_shape": list(gen_pts.shape)}
     svc_p = DetectionService(bank, gen_cfg)
-    outs, rt_p, syncs, rec, npnt, reads, _ = served(
+    outs, rt_p, syncs, rec, npnt, reads, _, _ = served(
         "phase 12.5 points request", svc_p, [body])
-    if (len(syncs) != reads[1] + 1 or reads[0] != 0
+    if (len(syncs) != reads[1] + 1 or reads[0] != 0 or reads[2] != 0
             or len(rec.k2_calls()) != 4):
         raise RuntimeError(f"the points request read the host {len(syncs)} "
                            f"times ({reads[1]} region-growing reads) and "
@@ -1718,9 +1807,9 @@ def _cli_phase(dev, card, bank, launches, check, check_batched, timings,
     from tpu_joints_torch.pipelines import multi
     from tpu_joints_torch.pipelines.cluster_tree import (detect_tree,
                                                          make_view_clusters)
-    from tpu_joints_torch.pipelines.detect import (detect, detect_organized,
-                                                   detect_organized_batch)
+    from tpu_joints_torch.pipelines.detect import detect, detect_organized
     from tpu_joints_torch.pipelines.ingest import ingest_organized
+    D = importlib.import_module("tpu_joints_torch.pipelines.detect")
     rg = importlib.import_module("tpu_joints_torch.segment.region_growing")
     from tpu_joints_torch.segment.sac import sac_cylinder, sac_plane
     from tpu_joints_torch.serve.batching import tree_map
@@ -1994,8 +2083,9 @@ def _cli_phase(dev, card, bank, launches, check, check_batched, timings,
     imgs, valids = frames["imgs"], frames["valids"]
 
     def run_batch():
-        return detect_organized_batch(imgs, valids, bank, bcfg, block=4,
-                                      half_window=5, crop_lo=lo, crop_hi=hi)
+        return D._detect_organized_batch_eager(
+            imgs, valids, bank, bcfg, block=4, half_window=5, crop_lo=lo,
+            crop_hi=hi)
 
     (res_b, n_b), *_ = counted("lattice batch", "phase 14.5 lattice batch of "
                                f"{imgs.shape[0]}", run_batch)
@@ -2151,22 +2241,398 @@ def _api_phase(dev, card, launches, check, timings, frames):
 
     for shape, (label, (q, s_, k, m)) in new.items():
         timings[min(k, 2)].append(_time_knn(
-            pk, q, s_, m, k, card, f"{label} K{min(k, 2)} {shape}", reps=5,
-            yardsticks=True))
+            pk, q, s_, m, k, card, f"{label} K{min(k, 2)} {shape}", reps=5))
         torch.cuda.empty_cache()
-    _, times = _timed_runs(run)
-    busy, ops, peak = _device_busy(run)
     rot, trans = _err(res.full_pose.cpu().numpy(), T_gt)
-    print(f"# phase 16 README detect at {API_CAPACITY} lanes: median "
-          f"{statistics.median(times):.3f} ms (min {min(times):.3f}, max "
-          f"{max(times):.3f}) over {len(times)} runs, device busy "
-          f"{busy:.3f} ms, {ops} device operations, peak {peak:.1f} MiB, "
-          f"{int(res.metrics['scene_keypoints'])} keys, accepted "
+    print(f"# phase 16 README detect at {API_CAPACITY} lanes (timed, with "
+          f"its device busy time and peak, in phase 17 in turns with its "
+          f"graph): {int(res.metrics['scene_keypoints'])} keys, accepted "
           f"{bool(res.accepted)} at {rot:.3f} deg / {trans * 1000:.3f} mm "
           f"from the truth (reported) {card}", flush=True)
     print(f"# phase 16 took {time.perf_counter() - t_phase:.1f} s {card}",
           flush=True)
-    return counts
+    return counts, (bank, scene, cfg)
+
+
+def _leaves(tree, name=""):
+    """(name, leaf) for every leaf of a result: tensors, and the part names
+    of a two-part result."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{name}.{k}")
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            yield from _leaves(v, f"{name}.{k}")
+    elif isinstance(tree, (tuple, list)) and not all(
+            isinstance(v, str) for v in tree):
+        for i, v in enumerate(tree):
+            yield from _leaves(v, f"{name}[{i}]")
+    else:
+        yield name, tree
+
+
+def _unequal_leaves(a, b):
+    """The leaves of two equally shaped results that are not equal bit for
+    bit (``torch.equal``; other leaves by ``==``)."""
+    import torch
+
+    out = []
+    for (n, x), (_, y) in zip(_leaves(a), _leaves(b), strict=True):
+        same = (torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y)
+        if not same:
+            out.append(n)
+    return out
+
+
+def _profile_call(fn):
+    """(device ms, device operations, peak MiB, K1 kernels, K2 kernels) of
+    one call of ``fn``: the profiler's kernel, copy and fill time and count,
+    the allocator's peak, and the kernels by name (``knn_split_kernel<1>``
+    is K1 and its batch mode, any other K is K2; a replay launches no
+    wrapper, so the wrappers' counts cannot see it). A profile with no
+    device event is taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if ka:
+            break
+    else:
+        raise RuntimeError("the profiler caught no device event in three tries")
+    k1 = sum(e.count for e in ka if "knn_split_kernel<1>" in e.key)
+    k2 = sum(e.count for e in ka if "knn_split_kernel<" in e.key) - k1
+    return (sum(e.self_device_time_total for e in ka) / 1e3,
+            sum(e.count for e in ka), torch.cuda.max_memory_allocated() / 2**20,
+            k1, k2)
+
+
+def _quartiles(times):
+    q1, q2, q3 = statistics.quantiles(times, n=4)
+    return f"{q2:.3f} ms [{q1:.3f}, {q3:.3f}]"
+
+
+def _abba(runs: dict, n: int) -> dict:
+    """Wall ms of each of two thunks ({"a": fn, "b": fn}), synced, in turns
+    a, b, b, a: ``n`` // 2 timed calls a turn after one untimed one."""
+    import torch
+
+    times = {k: [] for k in runs}
+    a, b = runs
+    for which in (a, b, b, a):
+        runs[which]()
+        for _ in range(n // 2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[which]()
+            torch.cuda.synchronize()
+            times[which].append((time.perf_counter() - t0) * 1e3)
+    return times
+
+
+def _hold_captured(label, eager, fused, card, runs=10):
+    """Phase 17 for one path: ``eager`` (the eager chain) and ``fused`` (the
+    captured graph's entry) on the same inputs. The first ``fused`` call
+    captures (its seconds and the pool's growth printed); every leaf of a
+    replay must equal the eager run's bit for bit, the K1/K2 kernels per
+    replay (profiler) must equal the eager run's, and the host syncs per
+    replay are counted (the flag reads of a growing's first chunk, none
+    elsewhere); then eager against replay wall time in turns (eager,
+    replay, replay, eager: ``runs`` each) and each form's device busy time.
+    Returns a dict of the numbers."""
+    import torch
+
+    from tpu_joints_torch.core import graphs
+
+    t_path = time.perf_counter()
+    ref = eager()
+    torch.cuda.synchronize()
+    n_before = len(graphs.entries())
+    t0 = time.perf_counter()
+    fused()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    new = graphs.entries()[n_before:]
+    capture_s = sum(e.capture_s for e in new)
+    pool_mib = sum(e.pool_bytes for e in new) / 2**20
+    need_mib = max(e.need_bytes for e in new) / 2**20
+    got = fused()
+    torch.cuda.synchronize()
+    bad = _unequal_leaves(ref, got)
+    reads0 = sum(e.reads for e in graphs.entries())
+    _, syncs = _count_syncs(fused)
+    reads = sum(e.reads for e in graphs.entries()) - reads0
+    prof = {"eager": _profile_call(eager), "replay": _profile_call(fused)}
+    turns = _abba({"eager": eager, "replay": fused}, runs)
+    k = {w: p[3:] for w, p in prof.items()}
+    print(f"# {label}: capture {capture_s:.3f} s (first call {first_s:.3f} "
+          f"s), {len(new)} graph entr{'y' if len(new) == 1 else 'ies'}, "
+          f"{need_mib:.1f} MiB allocated in the pool, its growth "
+          f"+{pool_mib:.1f} MiB; leaves equal to the eager run bit for bit: "
+          f"{'all' if not bad else 'NOT ' + ', '.join(bad)}; K1/K2 kernels "
+          f"eager {k['eager']}, replay {k['replay']} (profiler); host syncs "
+          f"per replay {len(syncs)} (flag reads {reads}); wall median "
+          f"[quartiles] over {len(turns['eager'])} each, in turns eager, "
+          f"replay, replay, eager: eager {_quartiles(turns['eager'])}, replay "
+          f"{_quartiles(turns['replay'])}; device busy eager "
+          f"{prof['eager'][0]:.3f} ms ({prof['eager'][1]} operations), replay "
+          f"{prof['replay'][0]:.3f} ms ({prof['replay'][1]}); peak "
+          f"{prof['eager'][2]:.1f} / {prof['replay'][2]:.1f} MiB; "
+          f"{time.perf_counter() - t_path:.1f} s {card}", flush=True)
+    for msg in sorted(set(syncs))[:5]:
+        print(f"#   sync: {msg}", flush=True)
+    if bad:
+        raise RuntimeError(f"{label}: the replay differs from the eager chain "
+                           f"in {bad}")
+    if k["eager"] != k["replay"] or k["eager"][0] == 0:
+        raise RuntimeError(f"{label}: K1/K2 kernels eager {k['eager']}, "
+                           f"replay {k['replay']}")
+    if len(syncs) != reads:
+        raise RuntimeError(f"{label}: {len(syncs)} host syncs in a replay "
+                           f"that reads {reads} flags")
+    return dict(capture_s=capture_s, pool_mib=pool_mib, need_mib=need_mib,
+                k=k["replay"],
+                syncs=len(syncs),
+                eager_ms=statistics.median(turns["eager"]),
+                replay_ms=statistics.median(turns["replay"]),
+                busy_eager=prof["eager"][0], busy_replay=prof["replay"][0])
+
+
+def _evicted_draw(dev, card, bank, cfg, f, geo):
+    """Phase 17 segmented, after its capture: the RANSAC plane's draw (seed
+    0, 256 hypotheses × 3 uniforms) is a cached upload (``core/prng.py``)
+    that the graph reads at its address, so the graph's entry must hold it.
+    The draw cache is emptied, then every free block of the draw's size on
+    the current and the capture stream is taken and filled with 0.5 (a
+    draw of one point three times) until the allocator maps new memory:
+    none may overlap the draw's bytes, and a replay must still equal the
+    eager chain bit for bit."""
+    import torch
+
+    from tpu_joints_torch.core import graphs, prng
+    D = importlib.import_module("tpu_joints_torch.pipelines.detect")
+
+    entry = graphs.entries()[-1]
+    hits = prng._uploaded.cache_info().hits
+    ptr = prng._uploaded(0, (256, 3), dev).data_ptr()
+    if (entry.entry != "detect_organized" or not entry.held
+            or prng._uploaded.cache_info().hits != hits + 1):
+        raise RuntimeError(f"phase 17 segmented: the last graph ({entry.entry})"
+                           f" holds {len(entry.held)} draws, expected the "
+                           f"plane's, which the draw cache holds")
+    prng._uploaded.cache_clear()
+    junk, hit, nbytes = [], False, 256 * 3 * 4
+    for stream in [torch.cuda.current_stream()] + [
+            st for _, st in graphs._POOLS.values()]:
+        with torch.cuda.stream(stream):
+            reserved = torch.cuda.memory_reserved()
+            while torch.cuda.memory_reserved() == reserved:
+                junk.append(torch.full((nbytes // 4,), 0.5, device=dev))
+                at = junk[-1].data_ptr()
+                hit |= at < ptr + nbytes and ptr < at + nbytes
+    got = D.detect_organized(f["tab_img"], f["tab_valid"], bank, cfg,
+                             fused=True, **geo)
+    ref = D.detect_organized(f["tab_img"], f["tab_valid"], bank, cfg, **geo)
+    torch.cuda.synchronize()
+    bad = _unequal_leaves(ref, got)
+    print(f"# phase 17 segmented, the draw cache emptied and {len(junk)} free "
+          f"blocks of the draw's size taken and filled with 0.5: one over "
+          f"the draw's bytes: {hit}; replay equal to the eager chain bit for "
+          f"bit: {'all' if not bad else 'NOT ' + ', '.join(bad)} {card}",
+          flush=True)
+    if hit or bad:
+        raise RuntimeError(f"phase 17 segmented: after the draw cache was "
+                           f"emptied its bytes were handed on ({hit}) and "
+                           f"the replay differs in {bad}")
+
+
+def _captured_phase(dev, card, bank, cfgs, frames, part_banks, api):
+    """Phase 17: the captured one-dispatch paths (module docstring).
+    ``cfgs`` holds the organized (det), segmented (seg), two-part (two),
+    multi-instance (multi) and HV (hv) configurations; ``frames`` phase 5's
+    frame (xyz_img, valid, lo, hi, and as host arrays xyz, valid_h, T),
+    phase 7's (tab_img, tab_valid), phase 9's (two_img, two_valid, wlo,
+    whi) and phase 11's batch (imgs, valids); ``api`` phase 16's bank,
+    scene and preset."""
+    import numpy as np
+    import torch
+
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.core import graphs
+    from tpu_joints_torch.core.ops import tree_map
+    from tpu_joints_torch.pipelines import multi
+    from tpu_joints_torch.serve import DetectionService
+    from tpu_joints_torch.serve.depth import depth_to_cloud
+    from tpu_joints_torch.serve.server import depth_block
+    D = importlib.import_module("tpu_joints_torch.pipelines.detect")
+
+    t_phase = time.perf_counter()
+    print(f"# phase 17 starts {t_phase - _T_START:.1f} s into the script "
+          f"{card}", flush=True)
+    f = frames
+    org = dict(block=4, half_window=5, crop_lo=f["lo"], crop_hi=f["hi"])
+    wide = dict(block=4, half_window=5, crop_lo=f["wlo"], crop_hi=f["whi"])
+    out = {}
+
+    def organized(label, img, valid, cfg, geo):
+        out[label] = _hold_captured(
+            f"phase 17 {label}",
+            lambda: D.detect_organized(img, valid, bank, cfg, **geo),
+            lambda: D.detect_organized(img, valid, bank, cfg, fused=True,
+                                       **geo), card)
+
+    organized("organized", f["xyz_img"], f["valid"], cfgs["det"], org)
+    organized("multi-instance", f["two_img"], f["two_valid"], cfgs["multi"],
+              wide)
+    organized("multi-instance + HV", f["two_img"], f["two_valid"], cfgs["hv"],
+              wide)
+    organized("segmented", f["tab_img"], f["tab_valid"], cfgs["seg"], org)
+    _evicted_draw(dev, card, bank, cfgs["seg"], f, org)
+    out["two-part"] = _hold_captured(
+        "phase 17 two-part",
+        lambda: multi._detect_parts_organized_eager(
+            f["tab_img"], f["tab_valid"], part_banks, cfgs["two"], **org),
+        lambda: multi.detect_parts_organized(
+            f["tab_img"], f["tab_valid"], part_banks, cfgs["two"], **org),
+        card)
+    out["batch of 8"] = _hold_captured(
+        "phase 17 batch of 8",
+        lambda: D._detect_organized_batch_eager(
+            f["imgs"], f["valids"], bank, cfgs["det"], **org),
+        lambda: D.detect_organized_batch(
+            f["imgs"], f["valids"], bank, cfgs["det"], **org), card)
+    api_bank, api_scene, api_cfg = api
+    out["README detect_fused"] = _hold_captured(
+        "phase 17 README detect_fused",
+        lambda: D.detect(api_scene, api_bank, api_cfg),
+        lambda: D.detect_fused(api_scene, api_bank, api_cfg), card)
+
+    # served, with --warm-depth: the streaming service and the
+    # micro-batched one (every batch size up to 8 captured at start-up),
+    # from an empty cache (phase 12 captured the served graphs before)
+    graphs.clear()
+    torch.cuda.empty_cache()
+    H, W = f["valid_h"].shape
+    cfg = cfgs["det"]
+    blk = depth_block(H, W, cfg.scene_capacity)
+    depths = [_depth(*syn.frame(f["T"], seed, with_table=False, width=W,
+                                height=H)) for seed in range(8)]
+
+    def direct(depth):
+        xyz = depth_to_cloud(depth)
+        ok = np.isfinite(xyz).all(-1)
+        Hc, Wc = H - H % blk, W - W % blk
+        return np.nan_to_num(xyz[:Hc, :Wc]), ok[:Hc, :Wc]
+
+    for name, batch_max in (("streaming", 1), ("batched", 8)):
+        n0 = len(graphs.entries())
+        svc = DetectionService(bank, cfg, batch_max=batch_max,
+                               batch_window_ms=1000.0)
+        t0 = time.perf_counter()
+        svc.warmup(depth_shape=(H, W))
+        warm_s = time.perf_counter() - t0
+        new = graphs.entries()[n0:]
+        frames_h = [direct(d) for d in depths[:3 if batch_max == 1 else 8]]
+        bodies = [_depth_body(d) for d in depths[:len(frames_h)]]
+        # every micro-batch the service runs, as it ran: its frames and
+        # the replayed result it read to the host
+        batches = []
+        run_batch = svc._run_batch
+
+        def recording(imgs, vms, block, run_batch=run_batch, batches=batches):
+            res = run_batch(imgs, vms, block)
+            batches.append((imgs, vms, block, res))
+            return res
+
+        svc._run_batch = recording
+        calls0 = svc.n_batches
+        with _serving(svc) as url:
+            replies, syncs = [], []
+            if batch_max == 1:
+                for body in bodies:
+                    (r,), s_ = _count_syncs(lambda: [_post(url, body)])
+                    replies.append(r)
+                    syncs.append(len(s_))
+            else:
+                with ThreadPoolExecutor(len(bodies)) as ex:
+                    replies, s_ = _count_syncs(
+                        lambda: list(ex.map(lambda b: _post(url, b), bodies)))
+                syncs.append(len(s_))
+        if any(st != 200 for st, _, _ in replies):
+            raise RuntimeError(f"phase 17 served {name}: {replies[0]}")
+        # each reply against the eager chain on its frame alone (streaming)
+        # or, batched, on the frames it was batched with: every leaf of each
+        # replayed batch equal to the eager batch of the same frames, and
+        # each reply's pose equal to its frame's entry there
+        if batch_max == 1:
+            refs = [D.detect_organized(torch.as_tensor(img, device=dev),
+                                       torch.as_tensor(vm, device=dev), bank,
+                                       cfg, block=blk, half_window=5)[0]
+                    for img, vm in frames_h]
+        else:
+            refs = [None] * len(frames_h)
+            for imgs, vms, block, res in batches:
+                res_e, _ = D._detect_organized_batch_eager(
+                    torch.as_tensor(imgs, device=dev),
+                    torch.as_tensor(vms, device=dev), bank, cfg, block=block,
+                    half_window=5)
+                bad = _unequal_leaves(tree_map(lambda t: t.cpu(), res_e), res)
+                if bad:
+                    raise RuntimeError(
+                        f"phase 17 served {name}: the replayed batch of "
+                        f"{imgs.shape[0]} differs from the eager batch of its "
+                        f"frames in {bad}")
+                for j, img in enumerate(imgs):
+                    i = next((i for i, (im, _) in enumerate(frames_h)
+                              if np.array_equal(im, img)), None)
+                    if i is None:
+                        raise RuntimeError(f"phase 17 served {name}: a "
+                                           f"batched frame is none of the "
+                                           f"frames sent")
+                    refs[i] = tree_map(lambda a, j=j: a[j], res_e)
+            if any(r is None for r in refs):
+                raise RuntimeError(f"phase 17 served {name}: a frame was in "
+                                   f"no recorded batch")
+        gaps = [float(np.abs(np.asarray(r["pose"], np.float32)
+                             - ref.full_pose.cpu().numpy()).max())
+                for (_, r, _), ref in zip(replies, refs)]
+        rt = [t for _, _, t in replies]
+        dev_ms = [r["latency_ms"] for _, r, _ in replies]
+        held = (f" (batches of {[b[0].shape[0] for b in batches]}, each "
+                f"equal leaf for leaf to the eager batch of its frames)"
+                if batch_max > 1 else "")
+        print(f"# phase 17 served {name} (--warm-depth {W}x{H}, batch_max "
+              f"{batch_max}): warm-up {warm_s:.3f} s, {len(new)} graphs "
+              f"captured in {sum(e.capture_s for e in new):.3f} s, at most "
+              f"{max(e.need_bytes for e in new) / 2**20:.1f} MiB allocated "
+              f"in the pool, its growth "
+              f"{sum(e.pool_bytes for e in new) / 2**20:.1f} MiB; "
+              f"{len(bodies)} requests in "
+              f"{svc.n_batches - calls0 if batch_max > 1 else len(bodies)} "
+              f"device calls{held}, host syncs {syncs}; replies' max |pose diff| to the eager "
+              f"chain {max(gaps)}; device call median "
+              f"{statistics.median(dev_ms):.3f} ms, round trip median "
+              f"{statistics.median(rt):.3f} ms {card}", flush=True)
+        if any(g != 0.0 for g in gaps):
+            raise RuntimeError(f"phase 17 served {name}: a reply differs from "
+                               f"the eager chain by {max(gaps):.3e}")
+        calls = svc.n_batches - calls0 if batch_max > 1 else 1
+        if any(n != calls for n in syncs):
+            raise RuntimeError(f"phase 17 served {name}: host syncs {syncs}, "
+                               f"one per device call expected")
+        out[f"served {name}"] = dict(warm_s=warm_s, device_ms=dev_ms, rt=rt)
+        print(f"#   phase 17 served {name} took "
+              f"{time.perf_counter() - t0:.1f} s {card}", flush=True)
+    pool = sum(e.pool_bytes for e in graphs.entries()) / 2**20
+    print(f"# phase 17 took {time.perf_counter() - t_phase:.1f} s; "
+          f"{len(graphs.entries())} captured entries, their pool growth "
+          f"{pool:.1f} MiB in all {card}", flush=True)
+    return out
 
 
 def _layouts(n_cards):
@@ -2693,11 +3159,11 @@ def main() -> None:
     from tpu_joints_torch.neighbors import pallas_knn as pk
     from tpu_joints_torch.pipelines import multi
     from tpu_joints_torch.pipelines.detect import (detect, detect_organized,
-                                                   detect_organized_batch,
                                                    good_instances)
     from tpu_joints_torch.segment import organized as lattice
     rg = importlib.import_module("tpu_joints_torch.segment.region_growing")
     from tpu_joints_torch.serve.batching import tree_map
+    D = importlib.import_module("tpu_joints_torch.pipelines.detect")
 
     dev = torch.device("cuda:0")
     kind = torch.cuda.get_device_name(0)
@@ -2710,10 +3176,18 @@ def main() -> None:
     # --- phase 2: build ---------------------------------------------------
     t0 = time.perf_counter()
     jobs = _start_other_build(args.against) if args.against else None
-    pk.build_all()
-    print(f"# phase 2 build: nn1.cu (tj_nn1, tj_nn1_batched) and knnk.cu "
-          f"(tj_knnk) compiled (in parallel) and bound in "
-          f"{time.perf_counter() - t0:.3f} s {card}", flush=True)
+    # the small paths' CPU run (their card run comes after phase 16) needs
+    # no kernel: it runs in a thread while nvcc compiles
+    with ThreadPoolExecutor(1) as ex:
+        small = ex.submit(_small_on, torch.device("cpu"))
+        pk.build_all()
+        print(f"# phase 2 build: nn1.cu (tj_nn1, tj_nn1_batched) and knnk.cu "
+              f"(tj_knnk) compiled (in parallel) and bound in "
+              f"{time.perf_counter() - t0:.3f} s {card}", flush=True)
+        small_cpu = small.result()
+    print(f"# phase 2 the small paths on the CPU done "
+          f"{time.perf_counter() - t0:.3f} s after the build started {card}",
+          flush=True)
     other = _finish_other_build(jobs, card) if jobs else None
     if other:
         print(f"# phase 2 build: the other version ({args.against}) and "
@@ -2721,6 +3195,8 @@ def main() -> None:
               flush=True)
 
     # --- phase 3: kernels vs plain versions on the card --------------------
+    print(f"# phase 3 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     g = torch.Generator().manual_seed(0)
 
     def pts(n):
@@ -2819,6 +3295,8 @@ def main() -> None:
         "phase 3 K1 batched (batch ICP shape)", yardsticks=True))
 
     # --- phase 4: the 42-view bank on the card ----------------------------
+    print(f"# phase 4 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     cfg = syn.bench_config()
     det_cfg = dataclasses.replace(cfg, segment_scene=False, remove_plane=False)
     torch.cuda.synchronize()
@@ -2849,6 +3327,8 @@ def main() -> None:
                                     other))
 
     # --- phase 5: the organized path --------------------------------------
+    print(f"# phase 5 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     T_gt = syn.bench_pose()
     xyz_h, valid_h = syn.frame(T_gt, 42, with_table=False)
     xyz_img = torch.as_tensor(xyz_h, device=dev)
@@ -2881,6 +3361,8 @@ def main() -> None:
           f"n_selected {int(n_sel)}, ")
 
     # --- phase 6: the generic path ----------------------------------------
+    print(f"# phase 6 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     gen_cfg = syn.generic_config()
     scene = make_cloud(syn.scene_points(xyz_h[valid_h], gen_cfg.scene_capacity),
                        capacity=gen_cfg.scene_capacity, device=dev)
@@ -2928,6 +3410,8 @@ def main() -> None:
           f"scene points after the crop {int(res.metrics['scene_points'])}, ")
 
     # --- phase 7: the segmented organized path ----------------------------
+    print(f"# phase 7 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     seg_cfg = syn.segmented_config()
     tab_h, tab_valid_h = syn.frame(T_gt, 42, with_table=True)
     tab_img = torch.as_tensor(tab_h, device=dev)
@@ -2970,6 +3454,8 @@ def main() -> None:
           f"{int(res.metrics['scene_points'])} scene points, ")
 
     # --- phase 8: the two-part path ---------------------------------------
+    print(f"# phase 8 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     two_cfg = syn.two_part_config()
     torch.cuda.synchronize()
     pk.knnk.launches = 0
@@ -3001,8 +3487,8 @@ def main() -> None:
           f"{tuple(cat.desc.shape)}, made and checked in "
           f"{(time.perf_counter() - t0) * 1e3:.3f} ms {card}", flush=True)
 
-    def run_two():
-        _, r, n = multi.detect_parts_organized(
+    def run_two():              # eager: phase 17 replays the captured form
+        _, r, n = multi._detect_parts_organized_eager(
             tab_img, tab_valid, part_banks, two_cfg, block=4, half_window=5,
             crop_lo=lo, crop_hi=hi)
         return r, n
@@ -3020,6 +3506,8 @@ def main() -> None:
                            f"{cand_parts}")
 
     # --- phase 9: multi-instance detection --------------------------------
+    print(f"# phase 9 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     two_h, two_valid_h, T_a, T_b = syn.two_instance_frame()
     two_img = torch.as_tensor(two_h, device=dev)
     two_valid = torch.as_tensor(two_valid_h, device=dev)
@@ -3073,6 +3561,8 @@ def main() -> None:
                     good_instances)
 
     # --- phase 10: global hypothesis verification --------------------------
+    print(f"# phase 10 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     (res_hv, _), rec, (hv_k1, hv_kb, hv_k2) = counted_frame(
         "phase 10 GO-HV path", lambda: run_multi(hv_cfg))
     launches["hv"] = rec.shapes()
@@ -3113,13 +3603,16 @@ def main() -> None:
     _small_hv(dev, card)
 
     # --- phase 11: a batch of 8 frames --------------------------------------
+    print(f"# phase 11 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     n_batch = 8
     imgs = torch.as_tensor(syn.batch_frames(xyz_h, n_batch), device=dev)
     valids = valid[None].expand(n_batch, -1, -1).contiguous()
 
-    def run_batch():
-        return detect_organized_batch(imgs, valids, bank, det_cfg, block=4,
-                                      half_window=5, crop_lo=lo, crop_hi=hi)
+    def run_batch():            # eager: phase 17 replays the captured form
+        return D._detect_organized_batch_eager(
+            imgs, valids, bank, det_cfg, block=4, half_window=5, crop_lo=lo,
+            crop_hi=hi)
 
     (res_b, n_sel_b), rec, (bat_k1, bat_kb, bat_k2) = counted_frame(
         "phase 11 batch of 8", run_batch)
@@ -3202,6 +3695,8 @@ def main() -> None:
           flush=True)
 
     # --- phase 12: the detection server on the card ----------------------
+    print(f"# phase 12 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     served_n = _serve_phase(
         dev, kind, card, bank, launches, check, check_batched,
         cfgs=dict(det=det_cfg, seg=seg_cfg, hv=hv_cfg, gen=gen_cfg),
@@ -3209,6 +3704,8 @@ def main() -> None:
                     T=T_gt, T_a=T_a, T_b=T_b, scene=scene), timings=timings)
 
     # --- phase 13: FPFH, the generic options, fpfh_demo served -------------
+    print(f"# phase 13 starts {time.perf_counter() - _T_START:.1f} s "
+          f"into the script {card}", flush=True)
     fpfh_n = _fpfh_phase(
         dev, card, bank, launches, check, timings,
         frames=dict(tab=tab_img, tab_valid=tab_valid, T=T_gt, lo=lo, hi=hi,
@@ -3231,11 +3728,24 @@ def main() -> None:
                     T=T_gt, lo=syn.CROP_LO, hi=syn.CROP_HI))
 
     # --- the paths at small size, card vs CPU ------------------------------
-    _small_runs(dev, det_cfg, gen_cfg, seg_cfg, two_cfg, T_gt, card)
+    print(f"# the paths at small size start {time.perf_counter() - _T_START:.1f} "
+          f"s into the script {card}", flush=True)
+    _small_runs(dev, T_gt, card, small_cpu)
 
     # --- phase 16: the README's Python API ----------------------------------
-    api_n = _api_phase(dev, card, launches, check, timings,
-                       frames=dict(xyz=xyz_h, valid=valid_h, T=T_gt))
+    api_n, api = _api_phase(dev, card, launches, check, timings,
+                            frames=dict(xyz=xyz_h, valid=valid_h, T=T_gt))
+
+    # --- phase 17: the captured one-dispatch paths ---------------------------
+    _captured_phase(
+        dev, card, bank,
+        cfgs=dict(det=det_cfg, seg=seg_cfg, two=two_cfg, multi=multi_cfg,
+                  hv=hv_cfg),
+        frames=dict(xyz_img=xyz_img, valid=valid, lo=lo, hi=hi, xyz=xyz_h,
+                    valid_h=valid_h, T=T_gt, tab_img=tab_img,
+                    tab_valid=tab_valid, two_img=two_img, two_valid=two_valid,
+                    wlo=wlo, whi=whi, imgs=imgs, valids=valids),
+        part_banks=part_banks, api=api)
 
     # the top-level numbers of each kernel are those of its main shape
     # (K1: ICP; K2: the region-growing graph) and its launches in phase 8

@@ -31,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.level0_bank import level0_jax_bank
 from tests.util import joint_points, random_rotation
 from tpu_joints.config import DetectionConfig
 from tpu_joints.core import io as jio
@@ -430,8 +431,11 @@ def test_ingest_organized_matches(pixel_frame, crop):
 # --- detect_organized and its batch with lattice and ISS keys ---------------
 
 @pytest.fixture(scope="module")
-def banks():
-    return _jax_built(syn.joint_model(3000, 1800), **BANK_KW)
+def banks(tmp_path_factory):
+    jb = level0_jax_bank(tmp_path_factory)
+    return jb, tbank.bank_from_numpy(
+        {k: np.asarray(getattr(jb, k)) for k in ARRAYS}
+        | {"params_hash": jb.params_hash}, device="cpu")
 
 
 def _same_detection(rt, nt, rj, nj, T_gt, tol_rad=1e-3, tol_m=1e-4):

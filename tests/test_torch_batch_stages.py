@@ -35,10 +35,10 @@ import numpy as np
 import pytest
 import torch
 
+from tests.level0_bank import level0_jax_bank
 from tests.test_segment_organized import _seg_cfg
 from tests.test_torch_batch import assert_batch_equals_singles
 from tpu_joints.config import DetectionConfig
-from tpu_joints.modelbank.bank import build_bank as jbuild_bank
 from tpu_joints_torch import config as tconfig
 from tpu_joints_torch import synthetic as syn
 from tpu_joints_torch.modelbank import bank as tbank
@@ -102,8 +102,8 @@ CASES = {"crop_chain": _crop_chain, "hv": _hv, "clustered_box": _clustered_box}
 
 
 @pytest.fixture(scope="module")
-def banks():
-    jb = jbuild_bank(syn.joint_model(3000, 1800), **BANK_KW)
+def banks(tmp_path_factory):
+    jb = level0_jax_bank(tmp_path_factory)
     tb = tbank.bank_from_numpy(
         {k: np.asarray(getattr(jb, k)) for k in ARRAYS}
         | {"params_hash": jb.params_hash}, device="cpu")

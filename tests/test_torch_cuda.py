@@ -607,3 +607,165 @@ def test_collectives_on_card_mesh_equal_cpu_mesh():
     torch.testing.assert_close(card["icp"][0].cpu(), cpu["icp"][0], rtol=0,
                                atol=5e-4)
     assert torch.equal(card["votes"].cpu(), cpu["votes"])
+
+
+def _leaves(tree):
+    from tpu_joints_torch.core.ops import tree_map
+
+    out = []
+    tree_map(out.append, tree)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("crop", [False, True])
+def test_replay_equals_the_eager_chain_on_card(crop):
+    """``detect_organized(fused=True)`` at small size (the 320×240 table
+    frame, level-0 bank; the lattice crop on or off): the first call
+    captures one graph, every leaf of a replay equals the eager chain's bit
+    for bit, a replay's result survives the next replay (another frame's),
+    and the second frame's replay equals its eager run too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import dataclasses
+
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.core import graphs
+    from tpu_joints_torch.modelbank.bank import build_bank
+    from tpu_joints_torch.pipelines.detect import detect_organized
+
+    cfg = _small(syn.segmented_config())
+    if not crop:
+        cfg = dataclasses.replace(cfg, segment_scene=False, remove_plane=False)
+    bank = build_bank(syn.joint_model(3000, 1800), device="cuda",
+                      **dict(syn.bench_bank_kwargs(cfg), level=0,
+                             resolution=64, key_capacity=64,
+                             icp_capacity=1024))
+    (img, valid), geo = _small_table_problem("cuda")
+    other = img + 1e-4 * torch.randn(img.shape, generator=torch.Generator()
+                                     .manual_seed(1)).to("cuda")
+    eager = [detect_organized(x, valid, bank, cfg, **geo) for x in (img, other)]
+    n = len(graphs.entries())
+    first = detect_organized(img, valid, bank, cfg, fused=True, **geo)
+    assert len(graphs.entries()) == n + 1
+    kept = _leaves(first)
+    snapshot = [t.clone() for t in kept]
+    second = detect_organized(other, valid, bank, cfg, fused=True, **geo)
+    assert len(graphs.entries()) == n + 1
+    for got, want in ((first, eager[0]), (second, eager[1])):
+        a, b = _leaves(got), _leaves(want)
+        assert len(a) == len(b) > 20
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert all(torch.equal(x, y) for x, y in zip(kept, snapshot))
+
+
+def _take_freed_bytes(ptr, nbytes):
+    """Allocate blocks of ``nbytes``, filled with 0.5, on the current stream
+    and on each capture stream until the allocator has to map new memory
+    (every free block that fits is taken, a freed block at ``ptr``
+    included). Returns (the blocks, whether one overlaps ``ptr``)."""
+    from tpu_joints_torch.core import graphs
+
+    junk, hit = [], False
+    for stream in [torch.cuda.current_stream()] + [
+            st for _, st in graphs._POOLS.values()]:
+        with torch.cuda.stream(stream):
+            reserved = torch.cuda.memory_reserved()
+            while torch.cuda.memory_reserved() == reserved:
+                junk.append(torch.full((nbytes // 4,), 0.5, device="cuda"))
+                at = junk[-1].data_ptr()
+                hit |= at < ptr + nbytes and ptr < at + nbytes
+    return junk, hit
+
+
+@pytest.mark.cuda
+def test_replay_survives_an_evicted_draw():
+    """A captured chain that adds a cached draw (``core/prng.py``) to its
+    input reads the draw at its address. After the capture the draw cache
+    is emptied and every free block of the draw's size is taken and filled
+    with 0.5: the graph's entry holds the draw, so no block overlaps its
+    bytes and the replay still adds the draw."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.core import graphs, prng
+
+    def plus_draw(x):
+        return x + prng.uniform_on(12345, (256, 3), x.device)
+
+    x = torch.zeros(256, 3, device="cuda")
+    want = torch.from_numpy(prng.uniform(12345, (256, 3))).cuda()
+    assert torch.equal(graphs.run("plus_draw", plus_draw, (x,), None,
+                                  plus_draw), want)
+    assert len(graphs.entries()[-1].held) == 1
+    ptr = prng._uploaded(12345, (256, 3), x.device).data_ptr()
+    prng._uploaded.cache_clear()
+    junk, hit = _take_freed_bytes(ptr, 256 * 3 * 4)
+    assert not hit
+    assert torch.equal(graphs.run("plus_draw", plus_draw, (x,), None,
+                                  plus_draw), want)
+    del junk
+
+
+@pytest.mark.cuda
+def test_segmented_replay_survives_an_evicted_draw():
+    """The lattice crop's plane removal reads a cached upload (the RANSAC
+    draw of ``core/prng.py``: seed 0, 256 hypotheses × 3 uniforms) at its
+    address. After the capture the draw cache is emptied and every free
+    block of the draw's size is taken and filled with 0.5: the graph's
+    entry holds the draw, so no block overlaps its bytes and the replay
+    still equals the eager chain bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.core import graphs, prng
+    from tpu_joints_torch.modelbank.bank import build_bank
+    from tpu_joints_torch.pipelines.detect import detect_organized
+
+    cfg = _small(syn.segmented_config())
+    bank = build_bank(syn.joint_model(3000, 1800), device="cuda",
+                      **dict(syn.bench_bank_kwargs(cfg), level=0,
+                             resolution=64, key_capacity=64,
+                             icp_capacity=1024))
+    (img, valid), geo = _small_table_problem("cuda")
+    detect_organized(img, valid, bank, cfg, fused=True, **geo)
+    entry = graphs.entries()[-1]
+    hits = prng._uploaded.cache_info().hits
+    ptr = prng._uploaded(0, (256, 3), img.device).data_ptr()
+    assert prng._uploaded.cache_info().hits == hits + 1   # the graph's draw
+    assert entry.held
+    prng._uploaded.cache_clear()
+    junk, hit = _take_freed_bytes(ptr, 256 * 3 * 4)
+    assert not hit
+    got = detect_organized(img, valid, bank, cfg, fused=True, **geo)
+    want = detect_organized(img, valid, bank, cfg, **geo)
+    a, b = _leaves(got), _leaves(want)
+    assert len(a) == len(b) > 20
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    del junk
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_and_leaves_no_graph():
+    """A chain that reads the host cannot be captured: the entry raises
+    (no eager run in its place), caches nothing, and the next capture
+    works."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.core import graphs
+
+    x = torch.arange(8.0, device="cuda")
+
+    def reads_host(t):
+        return t * float(t.sum())
+
+    n = len(graphs.entries())
+    with pytest.raises(RuntimeError, match="not run eagerly"):
+        graphs.run("reads_host", reads_host, (x,), None, reads_host)
+    assert len(graphs.entries()) == n
+
+    def doubles(t):
+        return t * 2
+
+    assert torch.equal(graphs.run("doubles", doubles, (x,), None, doubles),
+                       x * 2)
+    assert len(graphs.entries()) == n + 1

@@ -18,8 +18,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.level0_bank import level0_jax_bank
 from tpu_joints.config import DetectionConfig
-from tpu_joints.modelbank.bank import build_bank as jbuild_bank
 from tpu_joints.modelbank.bank import load_bank as jload_bank
 from tpu_joints.modelbank.bank import save_bank as jsave_bank
 from tpu_joints_torch import config as tconfig
@@ -53,10 +53,10 @@ def _err(T, G):
 
 
 @pytest.fixture(scope="module")
-def problem():
+def problem(tmp_path_factory):
     """(model, JAX bank, port bank from its arrays, frame, T_gt, cfgs)."""
     model = syn.joint_model(3000, 1800)
-    jb = jbuild_bank(model, **BANK_KW)
+    jb = level0_jax_bank(tmp_path_factory)
     tb = tbank.bank_from_numpy(
         {k: np.asarray(getattr(jb, k)) for k in ARRAYS}
         | {"params_hash": jb.params_hash}, device="cpu")

@@ -261,7 +261,7 @@ def test_mesh_service_needs_batching_and_fails_with_a_shard(problem,
         DetectionService(tb, tcfg, mesh=mesh)
     svc = DetectionService(tb, tcfg, batch_max=2, mesh=mesh)
     calls = []
-    real = tdet.detect_organized_batch
+    real = tdet._detect_organized_batch_eager     # the mesh's eager batch
 
     def flaky(imgs, *a, **kw):
         calls.append(imgs.shape[0])
@@ -269,7 +269,7 @@ def test_mesh_service_needs_batching_and_fails_with_a_shard(problem,
             raise RuntimeError("device 1 failed")
         return real(imgs, *a, **kw)
 
-    monkeypatch.setattr(tdet, "detect_organized_batch", flaky)
+    monkeypatch.setattr(tdet, "_detect_organized_batch_eager", flaky)
     img = np.zeros((2, 16, 16, 3), np.float32)
     with pytest.raises(RuntimeError, match="device 1 failed"):
         svc._mesh_batch(img, np.zeros((2, 16, 16), bool), 2)

@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.level0_bank import level0_jax_bank
 from tpu_joints.cli.main import _detect_one
 from tpu_joints.config import DetectionConfig
 from tpu_joints.core.cloud import Cloud as JCloud
@@ -57,8 +58,7 @@ def _err(T, G):
 @pytest.fixture(scope="module")
 def problem(tmp_path_factory):
     """(JAX bank, port bank, frame points, T_gt, cfgs, JAX CLI run)."""
-    model = syn.joint_model(3000, 1800)
-    jb = jbuild_bank(model, **BANK_KW)
+    jb = level0_jax_bank(tmp_path_factory)
     tb = tbank.bank_from_numpy(
         {k: np.asarray(getattr(jb, k)) for k in ARRAYS}
         | {"params_hash": jb.params_hash}, device="cpu")

@@ -15,8 +15,8 @@ import numpy as np
 import pytest
 import torch
 
+from tests.level0_bank import level0_jax_bank
 from tpu_joints.config import DetectionConfig
-from tpu_joints.modelbank.bank import build_bank as jbuild_bank
 from tpu_joints.pipelines import ingest as jingest
 from tpu_joints.segment import organized as jorg
 from tpu_joints_torch import config as tconfig
@@ -229,9 +229,8 @@ def test_ingest_organized_segmented_rejects_lattice_keypoints(frame):
 
 
 @pytest.fixture(scope="module")
-def banks():
-    model = syn.joint_model(3000, 1800)
-    jb = jbuild_bank(model, **BANK_KW)
+def banks(tmp_path_factory):
+    jb = level0_jax_bank(tmp_path_factory)
     tb = tbank.bank_from_numpy(
         {k: np.asarray(getattr(jb, k)) for k in ARRAYS}
         | {"params_hash": jb.params_hash}, device="cpu")

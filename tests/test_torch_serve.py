@@ -299,14 +299,15 @@ def test_server_depth_uses_organized_ingest(service, monkeypatch):
     """A dense depth frame enters through ``detect_organized`` (stencil
     normals + per-tile selection on the sensor grid), never the
     stride-subsample fallback, at the block the capacity picks and the
-    reference's half-window; the port has no ``fused`` switch."""
+    reference's half-window, as its one-dispatch program (``fused=True``,
+    the reference server's call: a captured graph on a card)."""
     calls = _count_calls(monkeypatch, "detect_organized")
     cam, depth = _splat_depth(service._model_xyz)
     out = service.detect_depth(depth, fov_deg=cam.fov_deg, near=cam.near,
                                far=cam.far)
     assert len(calls) == 1, "depth path must use the organized entry"
     args, kw = calls[0]
-    assert kw == {"block": 4, "half_window": 5}
+    assert kw == {"block": 4, "half_window": 5, "fused": True}
     assert args[0].shape == (120, 160, 3) and args[1].dtype == torch.bool
     assert out["metrics"]["scene_points"] > 50
 

@@ -30,8 +30,10 @@ then the whole chain unsynchronised: median, quartiles, min and max wall
 ms, device busy ms per frame and peak device memory. The segmented path is
 also run end to end with the lattice region growing never reading the host
 (all 64 sweeps, ``segment.organized.SWEEPS_PER_CHECK = 0``) beside its
-default of one read per 8 sweeps. Every line names the card and its power
-limit. Needs a CUDA device; raises without one.
+default of one read per 8 sweeps. Every path runs its eager chain (the
+captured graphs of ``core/graphs.py`` are timed by ``chip_smoke.py`` phase
+17). Every line names the card and its power limit. Needs a CUDA device;
+raises without one.
 """
 from __future__ import annotations
 
@@ -283,7 +285,7 @@ def main() -> None:
             "generic": lambda: D.detect(scene, bank, gen_cfg),
             "segmented": lambda: D.detect_organized(tab, tab_valid, bank,
                                                     seg_cfg, **geo),
-            "two-part": lambda: multi.detect_parts_organized(
+            "two-part": lambda: multi._detect_parts_organized_eager(
                 tab, tab_valid, part_banks, two_cfg, **geo),
             "instances": lambda: D.detect_organized(
                 two, two_valid, bank, multi_cfg, block=4, half_window=5,
@@ -291,8 +293,8 @@ def main() -> None:
             "hv": lambda: D.detect_organized(
                 two, two_valid, bank, hv_cfg, block=4, half_window=5,
                 crop_lo=wlo, crop_hi=whi),
-            "batch": lambda: D.detect_organized_batch(imgs, valids, bank,
-                                                      org_cfg, **geo),
+            "batch": lambda: D._detect_organized_batch_eager(
+                imgs, valids, bank, org_cfg, **geo),
             "fpfh": lambda: D.detect_organized(tab, tab_valid, b,
                                                syn.fpfh_config(), **geo),
         }[label]

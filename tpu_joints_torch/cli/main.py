@@ -573,8 +573,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "(the reference offsets x+1, z-0.8)")
     p.add_argument("--warm-depth", dest="warm_depth", default=None,
                    metavar="WxH",
-                   help="run the depth-frame path once at startup for this "
-                        "sensor shape (e.g. 640x480)")
+                   help="capture the depth-frame path's CUDA graph (with "
+                        "--batch-max N, the batch's of every size up to N) "
+                        "at startup for this sensor shape (e.g. 640x480); "
+                        "on the CPU, run it once")
     p.add_argument("--batch-max", dest="batch_max", type=int, default=1,
                    help="micro-batch up to N concurrent depth frames into "
                         "one pass (1 = streaming)")

@@ -9,11 +9,14 @@
   CUDA and on the CPU equal to the sequential scatter-add XLA runs).
 * ``scatter_add``: ``zeros(size).at[index].add(values)`` built on
   ``segment_sum``.
+* ``tree_map``: a function over the tensor leaves of a result (NamedTuples,
+  tuples, lists, dicts).
 """
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
 
@@ -114,3 +117,17 @@ def scatter_add(index: torch.Tensor, values: torch.Tensor,
     else:
         out.index_copy_(0, slot, sums)
     return out[:size]
+
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor or array leaf of NamedTuples, tuples, lists
+    and dicts; other leaves pass through."""
+    if isinstance(tree, (torch.Tensor, np.ndarray)):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, v) for v in tree))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return tree

@@ -22,6 +22,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from tpu_joints_torch.core import graphs
 from tpu_joints_torch.core.ops import xla_cumsum
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -56,16 +57,22 @@ def uniform(seed: int, shape: Tuple[int, ...]) -> np.ndarray:
 
 
 @functools.lru_cache(maxsize=16)
+def _uploaded(seed: int, shape: Tuple[int, ...],
+              device: torch.device) -> torch.Tensor:
+    u = torch.from_numpy(uniform(seed, shape))
+    if device.type == "cuda":
+        return u.pin_memory().to(device, non_blocking=True)
+    return u
+
+
 def uniform_on(seed: int, shape: Tuple[int, ...],
                device: torch.device) -> torch.Tensor:
     """``uniform(seed, shape)`` on ``device``, made once per (seed, shape,
     device): the draw is a constant of the key, so a frame never copies it.
     The one upload to a card goes through pinned memory without blocking,
-    so not even the first frame synchronises for it."""
-    u = torch.from_numpy(uniform(seed, shape))
-    if device.type == "cuda":
-        return u.pin_memory().to(device, non_blocking=True)
-    return u
+    so not even the first frame synchronises for it. A captured graph that
+    reads the draw holds it (``graphs.hold``), so the cache may evict it."""
+    return graphs.hold(_uploaded(seed, shape, device))
 
 
 def choice(uniforms: torch.Tensor, p: torch.Tensor) -> torch.Tensor:

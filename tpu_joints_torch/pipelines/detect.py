@@ -42,16 +42,25 @@ with ``cfg.segment_scene``, the graph or voxel one
 and the graph one in the clustered OBB (on a batch, those reads happen per
 frame). ``detect_organized`` without the crop chain never
 synchronises.
+
+The JAX package's one-executable programs are captured CUDA graphs on a
+card (``core/graphs.py``): ``detect_organized(fused=True)``,
+``detect_organized_batch`` (always), ``detect_fused`` (the unorganized
+chain whole, without the crop) and ``multi.detect_parts_organized``. A
+replay launches one graph and reads the host once only where a region
+growing ran (its change flags, one chunk of sweeps into the chain).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from tpu_joints_torch.config import DetectionConfig
+from tpu_joints_torch.core import graphs
 from tpu_joints_torch.core.cloud import SENTINEL, Cloud
 from tpu_joints_torch.core.ops import top_k
 from tpu_joints_torch.core.transforms import compose, invert_rigid
@@ -878,6 +887,59 @@ def detect(scene: Cloud, bank: ModelBank,
     return detect_with_features(feats, bank, cfg)
 
 
+def _fused_chain(xyz, mask, rgb, viewpoint, *, bank, cfg):
+    feats = prepare_scene(Cloud(xyz=xyz, mask=mask, rgb=rgb), cfg, viewpoint)
+    return detect_with_features(feats, bank, cfg)
+
+
+def detect_fused(scene: Cloud, bank: ModelBank,
+                 cfg: DetectionConfig = DetectionConfig(),
+                 viewpoint: Optional[torch.Tensor] = None) -> DetectionResult:
+    """Single-dispatch variant of :func:`detect`: on a card the whole
+    unorganized chain (normals, keypoints, descriptors, match, group,
+    refine) is one captured CUDA graph, replayed for every call with the
+    same configuration, shapes and bank (``core/graphs.py``); on the CPU it
+    runs eagerly. As the JAX package's ``detect_fused``, it takes the
+    configuration as given (no two-tier switch-off for model-less banks).
+
+    Raises ``ValueError`` for ``cfg.segment_scene``: the graph and the voxel
+    region growing of the crop read the host once per 8 sweeps inside
+    ``prepare_scene`` and are not captured yet (ROADMAP.md, queue 1, item
+    20: ``detect_fused`` with the graph and voxel crops); ``detect`` runs
+    those configurations.
+    """
+    if cfg.segment_scene:
+        raise ValueError(
+            f"detect_fused cannot capture the region-growing crop "
+            f"(segment_scene with rg_backend={cfg.rg_backend!r}): its growing "
+            f"reads the host once per 8 sweeps inside prepare_scene "
+            f"(ROADMAP.md, queue 1, item 20); run detect() for this "
+            f"configuration")
+    _check_devices(bank.device, scene.xyz, scene.mask, scene.rgb, viewpoint)
+    chain = functools.partial(_fused_chain, bank=bank, cfg=cfg)
+    return graphs.run("detect_fused", chain,
+                      (scene.xyz, scene.mask, scene.rgb, viewpoint), cfg, bank)
+
+
+def _organized_chain(xyz_img, valid, crop_lo, crop_hi, viewpoint, *, bank,
+                     cfg, block, half_window):
+    feats, n_sel = organized_features(xyz_img, valid, cfg, block, half_window,
+                                      crop_lo, crop_hi, viewpoint)
+    return detect_with_features(feats, bank, _strip_crop(cfg)), n_sel
+
+
+def _organized(xyz_img, valid, bank, cfg, block, half_window, crop_lo,
+               crop_hi, viewpoint):
+    """(the organized chain bound to all but its tensors, those tensors, the
+    static part of a graph's key) of one call."""
+    _check_devices(bank.device, xyz_img, valid, crop_lo, crop_hi, viewpoint)
+    cfg = _tier_cfg(bank, cfg)
+    chain = functools.partial(_organized_chain, bank=bank, cfg=cfg,
+                              block=block, half_window=half_window)
+    return (chain, (xyz_img, valid, crop_lo, crop_hi, viewpoint),
+            (cfg, block, half_window))
+
+
 def detect_organized(
     xyz_img: torch.Tensor,
     valid: torch.Tensor,
@@ -888,20 +950,30 @@ def detect_organized(
     crop_lo: Optional[torch.Tensor] = None,
     crop_hi: Optional[torch.Tensor] = None,
     viewpoint: Optional[torch.Tensor] = None,
+    fused: bool = False,
 ):
     """Raw organized frame float32[H, W, 3] + valid bool[H, W] → 6D pose.
 
     Every tensor argument must live on the bank's device; the chain runs
     there. With ``cfg.segment_scene`` / ``cfg.remove_plane`` the crop chain
     runs on the sensor lattice inside the ingest
-    (``ingest_organized_segmented``). Returns ``(DetectionResult,
-    n_selected)``.
+    (``ingest_organized_segmented``). With ``fused=True`` the chain on a
+    card is one captured CUDA graph (``core/graphs.py``), replayed for every
+    frame of the same configuration, shapes and bank: the one-dispatch
+    program the JAX package serves and benches. Returns
+    ``(DetectionResult, n_selected)``.
     """
-    _check_devices(bank.device, xyz_img, valid, crop_lo, crop_hi, viewpoint)
-    cfg = _tier_cfg(bank, cfg)
-    feats, n_sel = organized_features(xyz_img, valid, cfg, block, half_window,
-                                      crop_lo, crop_hi, viewpoint)
-    return detect_with_features(feats, bank, _strip_crop(cfg)), n_sel
+    chain, args, static = _organized(xyz_img, valid, bank, cfg, block,
+                                     half_window, crop_lo, crop_hi, viewpoint)
+    if fused:
+        return graphs.run("detect_organized", chain, args, static, bank)
+    return chain(*args)
+
+
+def _check_batch(xyz_imgs: torch.Tensor, valids: torch.Tensor) -> None:
+    if xyz_imgs.ndim != 4 or valids.ndim != 3:
+        raise ValueError(f"expected [B, H, W, 3] frames and [B, H, W] valids, "
+                         f"got {tuple(xyz_imgs.shape)} and {tuple(valids.shape)}")
 
 
 def detect_organized_batch(
@@ -921,16 +993,25 @@ def detect_organized_batch(
     the crop chain (``cfg.segment_scene`` / ``cfg.remove_plane``), the
     hypothesis verification and the clustered box run frame by frame inside
     it. Each frame's result equals its own ``detect_organized`` run up to
-    the rounding of the batched products.
+    the rounding of the batched products. On a card the pass is one
+    captured CUDA graph per batch size (``core/graphs.py``), as the JAX
+    package runs it as one program.
 
     Returns ``(DetectionResult, n_selected[B])`` with a leading batch axis
     on every leaf.
     """
-    if xyz_imgs.ndim != 4 or valids.ndim != 3:
-        raise ValueError(f"expected [B, H, W, 3] frames and [B, H, W] valids, "
-                         f"got {tuple(xyz_imgs.shape)} and {tuple(valids.shape)}")
-    _check_devices(bank.device, xyz_imgs, valids, crop_lo, crop_hi, viewpoint)
-    cfg = _tier_cfg(bank, cfg)
-    feats, n_sel = organized_features(xyz_imgs, valids, cfg, block,
-                                      half_window, crop_lo, crop_hi, viewpoint)
-    return detect_with_features(feats, bank, _strip_crop(cfg)), n_sel
+    _check_batch(xyz_imgs, valids)
+    chain, args, static = _organized(xyz_imgs, valids, bank, cfg, block,
+                                     half_window, crop_lo, crop_hi, viewpoint)
+    return graphs.run("detect_organized_batch", chain, args, static, bank)
+
+
+def _detect_organized_batch_eager(xyz_imgs, valids, bank, cfg, block=4,
+                                  half_window=5, crop_lo=None, crop_hi=None,
+                                  viewpoint=None):
+    """``detect_organized_batch`` run eagerly on any device: the mesh path,
+    which runs each card's share on that card's own thread, takes it."""
+    _check_batch(xyz_imgs, valids)
+    chain, args, _ = _organized(xyz_imgs, valids, bank, cfg, block,
+                                half_window, crop_lo, crop_hi, viewpoint)
+    return chain(*args)

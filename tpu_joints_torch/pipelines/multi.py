@@ -18,11 +18,13 @@ matching, grouping and refinement run over all parts' views at once — one
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from tpu_joints_torch.config import DetectionConfig
+from tpu_joints_torch.core import graphs
 from tpu_joints_torch.core.cloud import Cloud
 from tpu_joints_torch.core.ops import top_k
 from tpu_joints_torch.core.transforms import compose
@@ -96,6 +98,27 @@ def _cat_for_parts(banks: Dict[str, ModelBank]) -> Tuple[List[str], ModelBank]:
     return names, cat
 
 
+def _parts_chain(xyz_img, valid, crop_lo, crop_hi, viewpoint, *, cat, cfg,
+                 block, half_window, n_parts):
+    feats, n_sel = organized_features(xyz_img, valid, cfg, block, half_window,
+                                      crop_lo, crop_hi, viewpoint)
+    res = detect_with_features(feats, cat, _strip_crop(cfg), n_parts=n_parts)
+    return res, n_sel
+
+
+def _parts(xyz_img, valid, banks, cfg, block, half_window, crop_lo, crop_hi,
+           viewpoint):
+    """(part names, concatenated bank, the two-part chain bound to all but
+    its tensors, those tensors, the static part of a graph's key)."""
+    names, cat = _cat_for_parts(banks)
+    _check_devices(cat.device, xyz_img, valid, crop_lo, crop_hi, viewpoint)
+    cfg = _tier_cfg(cat, cfg)
+    chain = functools.partial(_parts_chain, cat=cat, cfg=cfg, block=block,
+                              half_window=half_window, n_parts=len(names))
+    return (names, cat, chain, (xyz_img, valid, crop_lo, crop_hi, viewpoint),
+            (cfg, block, half_window, len(names)))
+
+
 def detect_parts_organized(
     xyz_img: torch.Tensor,
     valid: torch.Tensor,
@@ -115,19 +138,28 @@ def detect_parts_organized(
     (build each with ``build_bank(full_joint_xyz, views=part_views,
     poses=part_poses, view_capacity=common)``); the two-tier and coverage
     machinery of the single-part pipeline applies unchanged. Every tensor
-    argument must live on the banks' device.
+    argument must live on the banks' device. On a card the whole search is
+    one captured CUDA graph (``core/graphs.py``), as the JAX package runs
+    it as one program.
 
     Returns ``(part_names, DetectionResult, n_selected)``; the winner's
     part is ``part_names[int(res.view_idx) // views_per_part]`` and each
     candidate's part is ``res.cand_views // views_per_part``.
     """
-    names, cat = _cat_for_parts(banks)
-    _check_devices(cat.device, xyz_img, valid, crop_lo, crop_hi, viewpoint)
-    cfg = _tier_cfg(cat, cfg)
-    feats, n_sel = organized_features(xyz_img, valid, cfg, block, half_window,
-                                      crop_lo, crop_hi, viewpoint)
-    res = detect_with_features(feats, cat, _strip_crop(cfg),
-                               n_parts=len(names))
+    names, cat, chain, args, static = _parts(
+        xyz_img, valid, banks, cfg, block, half_window, crop_lo, crop_hi,
+        viewpoint)
+    res, n_sel = graphs.run("detect_parts_organized", chain, args, static, cat)
+    return names, res, n_sel
+
+
+def _detect_parts_organized_eager(xyz_img, valid, banks, cfg, block=4,
+                                  half_window=5, crop_lo=None, crop_hi=None,
+                                  viewpoint=None):
+    """``detect_parts_organized`` run eagerly on any device."""
+    names, _, chain, args, _ = _parts(xyz_img, valid, banks, cfg, block,
+                                      half_window, crop_lo, crop_hi, viewpoint)
+    res, n_sel = chain(*args)
     return names, res, n_sel
 
 

@@ -19,13 +19,16 @@ counts them), never beyond ``max_sweeps``, and a chunk that ends at
 the chunk. With ``SWEEPS_PER_CHECK = 0`` all ``max_sweeps`` sweeps run and
 nothing is read: that schedule keeps the frame free of host reads but
 launches 64 sweeps where 8 do, and measured slower on an H100 (PERF.md);
-``breakdown.py`` sets it to time the two against each other.
+``breakdown.py`` sets it to time the two against each other. In a captured
+chain (``core/graphs.py``) the sweeps run with no read at all: one chunk
+with its change flag kept for the replay, or all ``max_sweeps``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from tpu_joints_torch.core import graphs
 from tpu_joints_torch.segment.region_growing import Clusters
 
 # 8-neighbourhood offsets (row, col)
@@ -99,6 +102,13 @@ def region_growing_lattice(xyz: torch.Tensor, normals: torch.Tensor,
     labels = torch.where(valid, flat_idx, N)
     chunk_max = SWEEPS_PER_CHECK if SWEEPS_PER_CHECK > 0 else max_sweeps
     sweeps = 0
+    fixed = graphs.fixed_sweeps(SWEEPS_PER_CHECK, max_sweeps)
+    if fixed is not None:               # a captured chain reads nothing
+        for _ in range(fixed):
+            labels, changed = _sweep(labels, edge_in, valid, N)
+        if fixed < max_sweeps:
+            graphs.note_unsettled(changed)
+        sweeps = max_sweeps
     while sweeps < max_sweeps:
         chunk = min(chunk_max, max_sweeps - sweeps)
         for _ in range(chunk):

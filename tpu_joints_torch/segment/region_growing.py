@@ -16,7 +16,9 @@ of the module), never beyond ``max_sweeps``: the labels equal the
 reference's. A chunk that ends at ``max_sweeps`` is not checked. So a call
 whose first sweep that changes nothing is sweep s makes ceil(s / 8) host
 reads (one fewer when the chunk that holds sweep s ends at ``max_sweeps``);
-``region_growing.host_checks`` counts them.
+``region_growing.host_checks`` counts them. In a captured chain
+(``core/graphs.py``) the sweeps run with no read: one chunk with its change
+flag kept for the replay, or all ``max_sweeps``.
 """
 from __future__ import annotations
 
@@ -25,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpu_joints_torch.core import graphs
 from tpu_joints_torch.core.cloud import Cloud
 from tpu_joints_torch.core.ops import scatter_add
 from tpu_joints_torch.neighbors.bruteforce import knn
@@ -78,6 +81,13 @@ def region_growing(cloud: Cloud, normals: torch.Tensor,
     arange = torch.arange(N, dtype=torch.int32, device=cloud.xyz.device)
     labels = torch.where(cloud.mask, arange, N)
     sweeps = 0
+    fixed = graphs.fixed_sweeps(SWEEPS_PER_CHECK, max_sweeps)
+    if fixed is not None:               # a captured chain reads nothing
+        for _ in range(fixed):
+            labels, changed = _sweep(labels, nbr, edge_in, cloud.mask, N)
+        if fixed < max_sweeps:
+            graphs.note_unsettled(changed)
+        sweeps = max_sweeps
     while sweeps < max_sweeps:
         chunk = min(SWEEPS_PER_CHECK, max_sweeps - sweeps)
         for _ in range(chunk):

@@ -26,19 +26,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-
-def tree_map(fn, tree):
-    """``fn`` on every tensor or array leaf of NamedTuples, tuples, lists
-    and dicts; other leaves pass through."""
-    if isinstance(tree, (torch.Tensor, np.ndarray)):
-        return fn(tree)
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(tree_map(fn, v) for v in tree))
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return tree
+from tpu_joints_torch.core.ops import tree_map
 
 
 def tree_zip(fn, trees: list):

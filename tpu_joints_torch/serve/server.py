@@ -20,11 +20,14 @@ malformed scenes return structured 4xx errors; every request's result
 comes to the host in one copy (``batching.to_host``), so a request costs
 one host read besides those of a region growing its configuration runs.
 Request arrays go to the device once, through pinned memory without
-blocking.
+blocking. On a card a depth frame replays the captured organized chain
+(``detect_organized(fused=True)``, the JAX server's one-dispatch program),
+and a micro-batch the captured batch of its size (``core/graphs.py``);
+``warmup(depth_shape=)`` captures them before the first request.
 
 With a device mesh (``mesh=``, ``serve --devices N``) the frames of each
 micro-batch are split over the mesh's ``data`` axis: each data device
-runs ``detect_organized_batch`` on its share with its own replica of the
+runs the batch eagerly on its share with its own replica of the
 bank (made once, at construction), each card's shares issued from its own
 thread (``distributed.mesh.run_on``), and each share's results come to the
 host in one copy. A batch holds exactly the
@@ -196,7 +199,9 @@ class DetectionService:
         configuration the port cannot run raises here.
 
         ``depth_shape=(H, W)`` also runs the organized path for that sensor
-        shape, on the bank's first view rendered into a depth frame.
+        shape, on the bank's first view rendered into a depth frame: on a
+        card that captures its graph, and with ``batch_max > 1`` (no mesh)
+        the batch's graph of every size up to ``batch_max``.
         """
         self.detect_points(np.zeros((16, 3), np.float32))
         if depth_shape is not None:
@@ -205,6 +210,12 @@ class DetectionService:
             pts = self._view_xyz[0][self._view_mask[0]]
             depth = cam.render(pts, splat=3)
             self.detect_depth(depth, fov_deg=fov_deg)
+            if self.batch_max > 1 and self.mesh is None:
+                # the frame above ran as a batch of 1; the other sizes
+                _, _, block, img, vmask = self._frame(depth, fov_deg)
+                for b in range(2, self.batch_max + 1):
+                    self._run_batch(np.stack([img] * b),
+                                    np.stack([vmask] * b), block)
 
     def detect_depth(self, depth: np.ndarray, fov_deg: float = 57.0,
                      near: float = 0.0, far: float = 0.0) -> dict:
@@ -213,13 +224,9 @@ class DetectionService:
         + per-tile selection), never the stride-subsample fallback; the
         reference's live path, ``ROS_server.cpp:2112-2176`` →
         ``SHOT.cpp:204``."""
-        depth = np.asarray(depth, np.float32)
-        H, W = depth.shape
-        xyz_img = depth_to_cloud(depth, fov_deg=fov_deg, near=near, far=far)
-        valid = np.isfinite(xyz_img).all(axis=-1)
+        xyz_img, valid, block, img, vmask = self._frame(depth, fov_deg, near,
+                                                        far)
         cap = self.cfg.scene_capacity
-        block = depth_block(H, W, cap)
-        Hc, Wc = H - H % block, W - W % block
         cropped = self.cfg.segment_scene or self.cfg.remove_plane
         if not cropped:
             # sparse-frame early-out on the host, before any device work:
@@ -228,20 +235,19 @@ class DetectionService:
             # above. The survivor check below catches a frame that fills
             # tiles yet starves the stencil normals. (Few survivors under
             # the crop chain are the crop doing its job, never a fallback.)
-            v = valid[:Hc, :Wc]
-            n_tiles = int(v.reshape(Hc // block, block,
-                                    Wc // block, block).any((1, 3)).sum())
+            Hc, Wc = vmask.shape
+            n_tiles = int(vmask.reshape(Hc // block, block,
+                                        Wc // block, block).any((1, 3)).sum())
             if n_tiles < min(64, cap // 8) and n_tiles < valid.sum() // 2:
                 return self.detect_points(xyz_img[valid])
-        img = np.nan_to_num(xyz_img[:Hc, :Wc])
-        vmask = valid[:Hc, :Wc]
         if self.batch_max > 1:
             res, latency_ms = self._batched_detect(img, vmask, block)
         else:
             def run():
                 res, _n_sel = detect_mod.detect_organized(
                     _upload(img, self.device), _upload(vmask, self.device),
-                    self.bank, self.cfg, block=block, half_window=5)
+                    self.bank, self.cfg, block=block, half_window=5,
+                    fused=True)
                 return res
 
             res, latency_ms = self._guarded(run)
@@ -255,6 +261,36 @@ class DetectionService:
                 return self.detect_points(xyz_img[valid])
         return self._payload(res, latency_ms, self.cfg)
 
+    def _frame(self, depth: np.ndarray, fov_deg: float, near: float = 0.0,
+               far: float = 0.0):
+        """A depth frame unprojected on the host: (xyz_img, valid, block,
+        img, vmask), the last two cropped to whole block² tiles with
+        invalid pixels zeroed, as the organized entries take them."""
+        depth = np.asarray(depth, np.float32)
+        H, W = depth.shape
+        xyz_img = depth_to_cloud(depth, fov_deg=fov_deg, near=near, far=far)
+        valid = np.isfinite(xyz_img).all(axis=-1)
+        block = depth_block(H, W, self.cfg.scene_capacity)
+        Hc, Wc = H - H % block, W - W % block
+        return (xyz_img, valid, block, np.nan_to_num(xyz_img[:Hc, :Wc]),
+                valid[:Hc, :Wc])
+
+    def _run_batch(self, imgs: np.ndarray, vms: np.ndarray, block: int):
+        """One micro-batch (stacked frames) through the device: split over
+        the mesh, else the captured batch of its size; read to the host in
+        one copy. The caller is the single writer while it holds the lock,
+        and reads the result to the host under it."""
+        def go():
+            if self.mesh is not None:
+                return self._mesh_batch(imgs, vms, block)
+            res, _ = detect_mod.detect_organized_batch(
+                _upload(imgs, self.device), _upload(vms, self.device),
+                self.bank, self.cfg, block=block, half_window=5)
+            return res
+
+        with self._lock:
+            return self._run_with_retry(lambda: to_host(go()))
+
     def _batched_detect(self, img, vmask, block: int):
         """Route one organized frame through the micro-batcher (one
         ``FrameBatcher`` per frame shape × block, so every batch stacks)."""
@@ -262,23 +298,9 @@ class DetectionService:
         with self._batchers_lock:
             batcher = self._batchers.get(key)
             if batcher is None:
-                def run_batch(imgs, vms, _block=block):
-                    def go():
-                        if self.mesh is not None:
-                            return self._mesh_batch(imgs, vms, _block)
-                        res, _ = detect_mod.detect_organized_batch(
-                            _upload(imgs, self.device),
-                            _upload(vms, self.device), self.bank, self.cfg,
-                            block=_block, half_window=5)
-                        return res
-
-                    # the leader is the single writer while it holds the
-                    # lock; the batcher reads the result to the host
-                    with self._lock:
-                        return self._run_with_retry(go)
-
-                batcher = FrameBatcher(run_batch, max_batch=self.batch_max,
-                                       window_ms=self.batch_window_ms)
+                batcher = FrameBatcher(
+                    lambda imgs, vms, _b=block: self._run_batch(imgs, vms, _b),
+                    max_batch=self.batch_max, window_ms=self.batch_window_ms)
                 self._batchers[key] = batcher
         if not self._slots.acquire(blocking=False):
             self.count("rejected")
@@ -304,7 +326,7 @@ class DetectionService:
 
         def one(i, dev):
             _, bank, idx = work[i]
-            res, _ = detect_mod.detect_organized_batch(
+            res, _ = detect_mod._detect_organized_batch_eager(
                 _upload(imgs[idx], dev), _upload(vms[idx], dev), bank,
                 self.cfg, block=block, half_window=5)
             return to_host(res)
