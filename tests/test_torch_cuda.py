@@ -769,3 +769,102 @@ def test_failed_capture_raises_and_leaves_no_graph():
     assert torch.equal(graphs.run("doubles", doubles, (x,), None, doubles),
                        x * 2)
     assert len(graphs.entries()) == n + 1
+
+
+def _organized_problem():
+    """The organized chain at small size on the card: (bank, cfg, frame,
+    valid, geometry), as ``test_replay_equals_the_eager_chain_on_card``
+    with the crop off."""
+    import dataclasses
+
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.modelbank.bank import build_bank
+
+    cfg = dataclasses.replace(_small(syn.segmented_config()),
+                              segment_scene=False, remove_plane=False)
+    bank = build_bank(syn.joint_model(3000, 1800), device="cuda",
+                      **dict(syn.bench_bank_kwargs(cfg), level=0,
+                             resolution=64, key_capacity=64,
+                             icp_capacity=1024))
+    (img, valid), geo = _small_table_problem("cuda")
+    return bank, cfg, img, valid, geo
+
+
+@pytest.mark.cuda
+def test_traced_replay_times_its_stages_on_card():
+    """With spans on, ``detect_organized(fused=True)`` captures a graph of
+    its own (another key) whose replay times the chain's four stages on the
+    device, in order, under the call's ``graphs.replay`` span; their sum is
+    within 5% of a pair of events around the whole replay, and every leaf
+    equals the untraced replay's bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.core import graphs, spans
+    from tpu_joints_torch.pipelines.detect import detect_organized
+
+    bank, cfg, img, valid, geo = _organized_problem()
+    plain = detect_organized(img, valid, bank, cfg, fused=True, **geo)
+    keys = set(graphs._CACHE)
+    spans.enable(True)
+    try:
+        detect_organized(img, valid, bank, cfg, fused=True, **geo)   # capture
+        assert len(set(graphs._CACHE) - keys) == 1
+        spans.settle()
+        spans.drain()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(50_000_000)       # the host runs ahead of the card
+        a.record()
+        traced = detect_organized(img, valid, bank, cfg, fused=True, **geo)
+        b.record()
+        torch.cuda.synchronize()
+        spans.settle()
+        recs = spans.drain()
+    finally:
+        spans.enable(False)
+    replay, = [r for r in recs if r.clock == "host"]
+    assert replay.name == "graphs.replay"
+    stages = sorted((r for r in recs if r.clock == "device"),
+                    key=lambda r: r.start_ns)
+    assert [r.name for r in stages] == ["chain.ingest", "chain.features",
+                                        "chain.match", "chain.refine"]
+    assert all(r.parent is replay and r.request == replay.request
+               for r in stages)
+    whole_ms = a.elapsed_time(b)
+    stage_ms = sum(r.ns for r in stages) / 1e6
+    assert 0.95 * whole_ms <= stage_ms <= whole_ms, (stage_ms, whole_ms)
+    x, y = _leaves(traced), _leaves(plain)
+    assert len(x) == len(y) > 20
+    assert all(torch.equal(p, q) for p, q in zip(x, y))
+
+
+@pytest.mark.cuda
+def test_a_warmed_traced_service_captures_nothing_on_card():
+    """``serve --trace``'s order: spans on, then the warm-up. Its frames
+    then capture no graph, and each reply's stage times are read after its
+    host copy: four device records a frame."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.core import graphs, spans
+    from tpu_joints_torch.serve import DetectionService
+
+    bank, cfg, img, valid, _ = _organized_problem()
+    depth = img[..., 2].cpu().numpy()
+    spans.enable(True)
+    try:
+        service = DetectionService(bank, cfg)
+        service.warmup(depth_shape=depth.shape)
+        n = len(graphs.entries())
+        spans.drain()
+        for _ in range(3):
+            service.detect_depth(depth)
+        recs = spans.drain()
+    finally:
+        spans.enable(False)
+    assert len(graphs.entries()) == n
+    names = [r.name for r in recs]
+    assert names.count("serve.frame") == names.count("graphs.replay") == 3
+    assert "graphs.capture" not in names
+    device = [r for r in recs if r.clock == "device"]
+    assert len(device) == 12
+    assert all(r.parent.name == "graphs.replay" and r.ns > 0 for r in device)

@@ -460,6 +460,10 @@ def cmd_serve(args) -> None:
         from tpu_joints_torch.distributed.mesh import make_mesh
 
         mesh = make_mesh(None if args.devices == 0 else args.devices)
+    if args.trace:
+        from tpu_joints_torch.core import spans
+
+        spans.enable(True)          # before the warm-up's captures
     serve_forever(load_bank(args.bank, device=dev), cfg, host=args.host,
                   port=args.port, grasp_offset=tuple(args.grasp_offset),
                   warm_depth=warm, batch_max=args.batch_max, mesh=mesh)
@@ -583,6 +587,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--devices", type=int, default=1,
                    help="split each micro-batch's frames over a data mesh "
                         "of N cards (0 = all visible); needs --batch-max>1")
+    p.add_argument("--trace", action="store_true",
+                   help="record spans (core/spans.py): /healthz then "
+                        "reports each span's count and mean ms")
     _add_reference_flags(p)
     _add_device_flag(p)
     p.set_defaults(fn=cmd_serve)

@@ -45,6 +45,11 @@ draws) is read by the graph at its address, so the capture passes it
 through ``hold`` and the graph's cache entry (``Captured.held``) keeps it
 for as long as the graph: an eviction from the module's cache can never
 hand its block to another tensor under a live graph.
+
+With spans on (``core/spans.py``) a call on a card is the span
+``graphs.replay`` (``graphs.capture`` when it captured), and a capture
+keeps the chain's stage marks as timed event nodes of its graph: such a
+graph is keyed apart from the one captured with spans off, which has none.
 """
 from __future__ import annotations
 
@@ -55,6 +60,7 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from tpu_joints_torch.core import spans
 from tpu_joints_torch.core.ops import tree_map
 
 _LOCK = threading.Lock()
@@ -114,6 +120,7 @@ class Captured:
                        torch.empty(a.shape, dtype=a.dtype, device=a.device)
                        for a in args]
         self.graphs: List[tuple] = []   # (graph, outputs, flag or None)
+        self.marks: List[list] = []     # each graph's stage events
         self.held: List[torch.Tensor] = []   # cached constants the graphs read
         self.capture_s = 0.0
         self.pool_bytes = 0             # the shared pool's growth
@@ -129,6 +136,7 @@ class Captured:
         (``mode`` "first" or "cap"); a failure discards the graph and
         raises."""
         t0 = time.perf_counter()
+        spans.rename("graphs.capture")
         prev = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)
         graph = out = None
@@ -146,12 +154,13 @@ class Captured:
             before = torch.cuda.memory_reserved(self.device)
             allocated = torch.cuda.memory_allocated(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
-            graph, flags, held = torch.cuda.CUDAGraph(), [], []
+            graph, flags, held, marks = torch.cuda.CUDAGraph(), [], [], []
             with torch.cuda.graph(graph, pool=pool, stream=stream,
                                   capture_error_mode="thread_local"):
                 torch.cuda.set_sync_debug_mode("error")
                 try:
-                    out = self._mode_run(mode, flags, held)
+                    with spans.collecting(marks):
+                        out = self._mode_run(mode, flags, held)
                 finally:
                     torch.cuda.set_sync_debug_mode(0)
                 flag = torch.stack(flags).any() if flags else None
@@ -170,15 +179,18 @@ class Captured:
         finally:
             torch.cuda.set_sync_debug_mode(prev)
         self.graphs.append((graph, out, flag))
+        self.marks.append(marks)
         self.held.extend(held)
         self.capture_s += time.perf_counter() - t0
 
     def replay(self, args: tuple):
+        spans.settle()          # stage times a call left unread
         for dst, src in zip(self.inputs, args):
             if dst is not None:
                 dst.copy_(src)
         graph, out, flag = self.graphs[0]
         graph.replay()
+        spans.replayed(self.marks[0])
         if flag is not None:
             self.reads += 1
             if bool(flag):
@@ -186,6 +198,7 @@ class Captured:
                     self.capture("cap")
                 graph, out, _ = self.graphs[1]
                 graph.replay()
+                spans.replayed(self.marks[1])
         return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor)
                         else t, out)
 
@@ -193,10 +206,12 @@ class Captured:
 def cache_key(entry: str, args: tuple, static, keep) -> tuple:
     """A graph's key: the entry, ``static`` (configuration, block, ...),
     the bank's identity, and the device, shape and dtype of each tensor of
-    ``args`` (None where an optional one is not given)."""
-    return (entry, static, id(keep),
-            tuple(None if a is None else (a.device, tuple(a.shape), a.dtype)
-                  for a in args))
+    ``args`` (None where an optional one is not given); with spans on, the
+    mark ``"spans"`` after them (a graph that times its stages)."""
+    key = (entry, static, id(keep),
+           tuple(None if a is None else (a.device, tuple(a.shape), a.dtype)
+                 for a in args))
+    return key + ("spans",) if spans.enabled() else key
 
 
 def run(entry: str, fn: Callable, args: tuple, static, keep):
@@ -212,17 +227,18 @@ def run(entry: str, fn: Callable, args: tuple, static, keep):
     if len(devices) != 1:
         raise ValueError(f"{entry}: inputs on several devices {devices}")
     device = devices.pop()
-    key = cache_key(entry, args, static, keep)
-    with _LOCK:
-        hit = _CACHE.get(key)
-        if hit is None:
-            hit = Captured(entry, fn, args, keep, device)
-            for dst, src in zip(hit.inputs, args):
-                if dst is not None:
-                    dst.copy_(src)
-            hit.capture("first")
-            _CACHE[key] = hit
-        return hit.replay(args)
+    with spans.span("graphs.replay"):
+        key = cache_key(entry, args, static, keep)
+        with _LOCK:
+            hit = _CACHE.get(key)
+            if hit is None:
+                hit = Captured(entry, fn, args, keep, device)
+                for dst, src in zip(hit.inputs, args):
+                    if dst is not None:
+                        dst.copy_(src)
+                hit.capture("first")
+                _CACHE[key] = hit
+            return hit.replay(args)
 
 
 def entries() -> List[Captured]:

@@ -60,7 +60,7 @@ import numpy as np
 import torch
 
 from tpu_joints_torch.config import DetectionConfig
-from tpu_joints_torch.core import graphs
+from tpu_joints_torch.core import graphs, spans
 from tpu_joints_torch.core.cloud import SENTINEL, Cloud
 from tpu_joints_torch.core.ops import top_k
 from tpu_joints_torch.core.transforms import compose, invert_rigid
@@ -153,7 +153,16 @@ def prepare_scene(scene: Cloud, cfg: DetectionConfig,
     support (``cfg.normal_radius > 0``), an anchor subsample
     (``cfg.normal_anchors > 0``) or the k nearest. ``key_select`` (bool[N])
     replaces the keypoint detector (uniform sampling, or ISS).
+
+    The stage ``chain.features`` (``core/spans.py``).
     """
+    with spans.stage("chain.features", scene.xyz):
+        return _prepare_scene(scene, cfg, viewpoint, normals, curvature,
+                              key_select)
+
+
+def _prepare_scene(scene: Cloud, cfg: DetectionConfig, viewpoint, normals,
+                   curvature, key_select) -> SceneFeatures:
     if cfg.descriptor not in ("shot", "fpfh"):
         raise ValueError(f"unknown descriptor {cfg.descriptor!r}")
     if scene.xyz.ndim == 3:
@@ -442,15 +451,19 @@ def detect_with_features(feats: SceneFeatures, bank: ModelBank,
                          n_parts: int = 1) -> DetectionResult:
     """Match → group → refine against the bank. ``n_parts > 1``: the bank's
     view axis concatenates that many part banks sharing one full CAD (see
-    ``refine_instances``)."""
-    corrs = match_bank(feats.desc, feats.desc_valid, bank.desc,
-                       bank.key_valid, cfg)
-    inst = _group_all_views(feats, bank, corrs, cfg)
+    ``refine_instances``). The stages ``chain.match`` (match and grouping)
+    and ``chain.refine`` (``core/spans.py``)."""
+    with spans.stage("chain.match", feats.desc):
+        corrs = match_bank(feats.desc, feats.desc_valid, bank.desc,
+                           bank.key_valid, cfg)
+        inst = _group_all_views(feats, bank, corrs, cfg)
     n_corr = corrs.valid.reshape(-1, bank.n_views * corrs.valid.shape[1]).sum(
         1, dtype=torch.int32)
     if feats.cloud.xyz.ndim == 2:
         n_corr = n_corr[0]
-    return refine_instances(feats, bank, inst, n_corr, cfg, n_parts=n_parts)
+    with spans.stage("chain.refine", feats.desc):
+        return refine_instances(feats, bank, inst, n_corr, cfg,
+                                n_parts=n_parts)
 
 
 def _candidate_cut(inst: Instances, cfg: DetectionConfig, n_parts: int):
@@ -827,27 +840,29 @@ def organized_features(xyz_img, valid, cfg: DetectionConfig, block: int,
     with ``cfg.keypoints == "lattice"`` (one per ``cfg.key_group``² tiles),
     then ``prepare_scene``. A batch of frames [B, H, W, 3] runs the crop
     chain frame by frame (its lattice region growing reads the host per
-    frame) and stacks the working sets."""
+    frame) and stacks the working sets. The ingest is the stage
+    ``chain.ingest`` (``core/spans.py``)."""
     kg = cfg.key_group if cfg.keypoints == "lattice" else 0
-    if (cfg.segment_scene or cfg.remove_plane) and xyz_img.ndim == 4:
-        frames = [ingest_organized_segmented(
-            img, vmask, cfg, block=block, half_window=half_window,
-            crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint,
-            key_group=kg)
-            for img, vmask in zip(xyz_img, valid)]
-        clouds, *rest = zip(*frames)
-        out = (Cloud(*(torch.stack(f) for f in zip(*clouds))),
-               *(torch.stack(t) for t in rest))
-    elif cfg.segment_scene or cfg.remove_plane:
-        out = ingest_organized_segmented(
-            xyz_img, valid, cfg, block=block, half_window=half_window,
-            crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint,
-            key_group=kg)
-    else:
-        out = ingest_organized_blocks(
-            xyz_img, valid, block=block, half_window=half_window,
-            capacity=cfg.scene_capacity, crop_lo=crop_lo, crop_hi=crop_hi,
-            viewpoint=viewpoint, key_group=kg)
+    with spans.stage("chain.ingest", xyz_img):
+        if (cfg.segment_scene or cfg.remove_plane) and xyz_img.ndim == 4:
+            frames = [ingest_organized_segmented(
+                img, vmask, cfg, block=block, half_window=half_window,
+                crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint,
+                key_group=kg)
+                for img, vmask in zip(xyz_img, valid)]
+            clouds, *rest = zip(*frames)
+            out = (Cloud(*(torch.stack(f) for f in zip(*clouds))),
+                   *(torch.stack(t) for t in rest))
+        elif cfg.segment_scene or cfg.remove_plane:
+            out = ingest_organized_segmented(
+                xyz_img, valid, cfg, block=block, half_window=half_window,
+                crop_lo=crop_lo, crop_hi=crop_hi, viewpoint=viewpoint,
+                key_group=kg)
+        else:
+            out = ingest_organized_blocks(
+                xyz_img, valid, block=block, half_window=half_window,
+                capacity=cfg.scene_capacity, crop_lo=crop_lo, crop_hi=crop_hi,
+                viewpoint=viewpoint, key_group=kg)
     scene, normals, curvature, n_sel = out[:4]
     key_select = out[4] if kg > 0 else None
     feats = prepare_scene(scene, _strip_crop(cfg), viewpoint, normals,

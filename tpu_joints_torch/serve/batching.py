@@ -21,11 +21,13 @@ read.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 
+from tpu_joints_torch.core import spans
 from tpu_joints_torch.core.ops import tree_map
 
 
@@ -44,33 +46,42 @@ def to_host(tree):
     """Every tensor leaf of ``tree`` on the CPU through ONE device-to-host
     copy (one synchronisation): the leaves are packed as bytes into one
     buffer on their device, copied, and unpacked as views of the host
-    buffer. CPU leaves pass through."""
+    buffer. CPU leaves pass through. The span ``serve.to_host``; the stage
+    times of the graphs that made ``tree`` are read after it
+    (``core/spans.py``)."""
+    with spans.span("serve.to_host"):
+        tree = _to_host(tree)
+    spans.settle()
+    return tree
+
+
+def _to_host(tree):
     leaves = []
     tree_map(lambda t: leaves.append(t) if isinstance(t, torch.Tensor)
              and t.device.type != "cpu" else None, tree)
     if not leaves:
         return tree
-    parts, spans, at = [], {}, 0
+    parts, offsets, at = [], {}, 0
     for t in leaves:
         raw = t.contiguous().reshape(-1).view(torch.uint8)
         pad = -raw.numel() % 8           # every leaf starts 8-byte aligned
         parts += [raw, raw.new_zeros(pad)] if pad else [raw]
-        spans[id(t)] = at
+        offsets[id(t)] = at
         at += raw.numel() + pad
     host = torch.cat(parts).cpu()
 
     def unpack(t):
-        if not isinstance(t, torch.Tensor) or id(t) not in spans:
+        if not isinstance(t, torch.Tensor) or id(t) not in offsets:
             return t
         n = t.numel() * t.element_size()
-        start = spans[id(t)]
+        start = offsets[id(t)]
         return host[start:start + n].view(t.dtype).reshape(t.shape)
 
     return tree_map(unpack, tree)
 
 
 class _Entry:
-    __slots__ = ("img", "vmask", "done", "result", "error")
+    __slots__ = ("img", "vmask", "done", "result", "error", "started_ns")
 
     def __init__(self, img, vmask):
         self.img = img
@@ -78,6 +89,7 @@ class _Entry:
         self.done = threading.Event()
         self.result = None
         self.error: Optional[BaseException] = None
+        self.started_ns = 0         # when its batch started (spans on)
 
 
 class FrameBatcher:
@@ -108,7 +120,9 @@ class FrameBatcher:
         self.n_batched_frames = 0
 
     def submit(self, img: np.ndarray, vmask: np.ndarray):
-        """Enqueue one frame; blocks until its result is ready."""
+        """Enqueue one frame; blocks until its result is ready. With spans
+        on, the wait until its batch started is the span ``serve.queue``."""
+        queued_ns = time.time_ns() if spans.enabled() else 0
         e = _Entry(img, vmask)
         lead = False
         with self._lock:
@@ -121,6 +135,8 @@ class FrameBatcher:
         if lead:
             self._lead()
         e.done.wait()
+        if queued_ns and e.started_ns:
+            spans.add("serve.queue", queued_ns, e.started_ns)
         if e.error is not None:
             raise e.error
         return e.result
@@ -140,6 +156,10 @@ class FrameBatcher:
             self._run(batch)
 
     def _run(self, batch: List[_Entry]):
+        if spans.enabled():
+            started = time.time_ns()
+            for e in batch:
+                e.started_ns = started
         try:
             out = to_host(self.run_batch(np.stack([e.img for e in batch]),
                                          np.stack([e.vmask for e in batch])))

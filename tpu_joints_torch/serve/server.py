@@ -34,6 +34,16 @@ host in one copy. A batch holds exactly the
 queued frames: nothing pads it to the axis (the JAX package repeats the
 last frame there for XLA's per-shape executables; a device here simply
 gets one frame fewer, or none). A failing device fails its batch.
+
+With spans on (``core/spans.py``; ``serve --trace``) every request is a
+tree of spans: ``serve.frame`` (the whole call) over ``serve.unproject``
+(the host unprojection and tile count), ``serve.queue`` (the wait for a
+slot and the lock, or in a micro-batch for the batch to start),
+``serve.upload`` (pinning and the copy's enqueue, per array),
+``graphs.replay`` (``core/graphs.py``), ``serve.to_host`` (the one host
+read, which waits for the device) and ``serve.payload`` (the reply); the
+captured chain's stages are timed on the device beneath the replay.
+``/healthz`` then reports every span's count and mean.
 """
 from __future__ import annotations
 
@@ -49,6 +59,7 @@ import numpy as np
 import torch
 
 from tpu_joints_torch.config import DetectionConfig
+from tpu_joints_torch.core import spans
 from tpu_joints_torch.core.cloud import Cloud, make_cloud
 from tpu_joints_torch.modelbank.bank import ModelBank, bank_to
 from tpu_joints_torch.native import ingest_native
@@ -106,10 +117,11 @@ class Busy(Exception):
 def _upload(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A host array on ``device``; to a card through pinned memory without
     blocking (a pageable copy would synchronise the host)."""
-    t = torch.from_numpy(np.ascontiguousarray(a))
-    if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
-    return t.to(device)
+    with spans.span("serve.upload"):
+        t = torch.from_numpy(np.ascontiguousarray(a))
+        if device.type == "cuda":
+            return t.pin_memory().to(device, non_blocking=True)
+        return t.to(device)
 
 
 def depth_block(H: int, W: int, capacity: int) -> int:
@@ -224,22 +236,31 @@ class DetectionService:
         + per-tile selection), never the stride-subsample fallback; the
         reference's live path, ``ROS_server.cpp:2112-2176`` →
         ``SHOT.cpp:204``."""
-        xyz_img, valid, block, img, vmask = self._frame(depth, fov_deg, near,
-                                                        far)
+        with spans.span("serve.frame"):
+            return self._detect_depth(depth, fov_deg, near, far)
+
+    def _detect_depth(self, depth, fov_deg, near, far) -> dict:
         cap = self.cfg.scene_capacity
         cropped = self.cfg.segment_scene or self.cfg.remove_plane
-        if not cropped:
-            # sparse-frame early-out on the host, before any device work:
-            # the organized ingest keeps at most one point per block² tile,
-            # so the tiles with any valid pixel bound the working set from
-            # above. The survivor check below catches a frame that fills
-            # tiles yet starves the stencil normals. (Few survivors under
-            # the crop chain are the crop doing its job, never a fallback.)
-            Hc, Wc = vmask.shape
-            n_tiles = int(vmask.reshape(Hc // block, block,
-                                        Wc // block, block).any((1, 3)).sum())
-            if n_tiles < min(64, cap // 8) and n_tiles < valid.sum() // 2:
-                return self.detect_points(xyz_img[valid])
+        with spans.span("serve.unproject"):
+            xyz_img, valid, block, img, vmask = self._frame(depth, fov_deg,
+                                                            near, far)
+            sparse = False
+            if not cropped:
+                # sparse-frame early-out on the host, before any device
+                # work: the organized ingest keeps at most one point per
+                # block² tile, so the tiles with any valid pixel bound the
+                # working set from above. The survivor check below catches
+                # a frame that fills tiles yet starves the stencil normals.
+                # (Few survivors under the crop chain are the crop doing
+                # its job, never a fallback.)
+                Hc, Wc = vmask.shape
+                n_tiles = int(vmask.reshape(Hc // block, block, Wc // block,
+                                            block).any((1, 3)).sum())
+                sparse = (n_tiles < min(64, cap // 8)
+                          and n_tiles < valid.sum() // 2)
+        if sparse:
+            return self._detect_points(xyz_img[valid])
         if self.batch_max > 1:
             res, latency_ms = self._batched_detect(img, vmask, block)
         else:
@@ -258,7 +279,7 @@ class DetectionService:
             n_organized = int(res.metrics["scene_points"])
             if (n_organized < min(64, cap // 8)
                     and n_organized < valid.sum() // 2):
-                return self.detect_points(xyz_img[valid])
+                return self._detect_points(xyz_img[valid])
         return self._payload(res, latency_ms, self.cfg)
 
     def _frame(self, depth: np.ndarray, fov_deg: float, near: float = 0.0,
@@ -307,7 +328,7 @@ class DetectionService:
             raise Busy("detection queue full")
         try:
             t0 = time.perf_counter()
-            res = batcher.submit(img, vmask)
+            res = batcher.submit(img, vmask)   # spans its wait: serve.queue
             latency_ms = (time.perf_counter() - t0) * 1000.0
             self.count("requests")
         finally:
@@ -351,6 +372,10 @@ class DetectionService:
         """An unorganized cloud: NaN filter, even-stride subsample to the
         working set and padding (the native library's, else numpy's), then
         ``detect``."""
+        with spans.span("serve.frame"):
+            return self._detect_points(pts)
+
+    def _detect_points(self, pts: np.ndarray) -> dict:
         pts = np.asarray(pts, np.float32).reshape(-1, 3)
         cap = self.cfg.scene_capacity
         ingested = ingest_native(pts, cap)
@@ -387,17 +412,19 @@ class DetectionService:
         """Backpressure slot + single-writer lock + request timing around a
         retried detection thunk whose result is read to the host in one
         copy. Returns (host result, latency_ms)."""
-        if not self._slots.acquire(blocking=False):
-            self.count("rejected")
-            raise Busy("detection queue full")
+        with spans.span("serve.queue"):
+            if not self._slots.acquire(blocking=False):
+                self.count("rejected")
+                raise Busy("detection queue full")
+            self._lock.acquire()
         try:
-            with self._lock:
-                t0 = time.perf_counter()
-                res = self._run_with_retry(lambda: to_host(fn()))
-                latency_ms = (time.perf_counter() - t0) * 1000.0
-            self.count("requests")
+            t0 = time.perf_counter()
+            res = self._run_with_retry(lambda: to_host(fn()))
+            latency_ms = (time.perf_counter() - t0) * 1000.0
         finally:
+            self._lock.release()
             self._slots.release()
+        self.count("requests")
         return res, latency_ms
 
     def _detect_scene(self, scene: Cloud) -> dict:
@@ -407,6 +434,10 @@ class DetectionService:
 
     def _payload(self, res, latency_ms, cfg) -> dict:
         """The reply, from a result already on the host."""
+        with spans.span("serve.payload"):
+            return self._reply(res, latency_ms, cfg)
+
+    def _reply(self, res, latency_ms, cfg) -> dict:
         view = int(res.view_idx)
         T = res.view_pose.numpy()
         aligned = self._view_xyz[view] @ T[:3, :3].T + T[:3, 3]
@@ -484,6 +515,8 @@ def make_server(
                     "batches": service.n_batches,
                     "batched_frames": service.n_batched_frames,
                     "bank_views": int(service.bank.n_views),
+                    **({"spans": spans.summary()} if spans.enabled()
+                       else {}),
                 })
             else:
                 self._send(404, {"error": f"no route {self.path}"})
