@@ -24,8 +24,9 @@ Phases (any failure raises and the exit code is non-zero):
   1. device  — card name and power limit (nvidia-smi);
   2. build   — compiles kernels K1 (nn1.cu: tj_nn1 and its batch mode
                tj_nn1_batched) and K2 (knnk.cu, both with the shared
-               knn_split.cuh) from the checkout, one nvcc each, started
-               together (with --against, the other version's too);
+               knn_split.cuh) and the served frame's unproject.cu from the
+               checkout, one nvcc each, started together (with --against,
+               the other version's too);
   3. kernels — K1, K1's batch mode and K2 against their plain PyTorch
                versions on the card (the batch mode also against B unbatched
                K1 launches; fixed shapes, the stacked edge cases of
@@ -36,7 +37,10 @@ Phases (any failure raises and the exit code is non-zero):
                orders and ties that stress the split sweep and the lane merge
                and at shapes that straddle the split (the inputs of
                tpu_joints_torch/neighbors/knn_cases.py); K1 timed at its
-               three path shapes (ICP, both coverage tiers);
+               three path shapes (ICP, both coverage tiers); 3.1 the served
+               frame's unproject kernel bit for bit against its plain
+               version on the cases of serve/depth_cases.py, and timed at
+               640x480, block 4, beside the plain version and its bound;
   4. bank    — the 42-view SHOT bank of bench.py built on the card: K2
                launches counted (the k=16 normals, one per view), every
                launch's inputs rechecked against the plain version, and K2
@@ -498,6 +502,72 @@ def _time_knn(pk, q, s, m, k, card, label, other=None, reps=20,
         row.update(other_ms=statistics.median(ev["other"]),
                    other_dev_ms=statistics.median(dv["other"]))
     return row
+
+
+def _unproject_phase(dev, card):
+    """Phase 3.1: the served frame's unprojection kernel (``unproject.cu``)
+    against its plain version bit for bit on every ``depth_cases`` case
+    (img as float32 bits, vmask, both counts; one launch each), then timed
+    at 640x480, block 4 (the bench frame): CUDA events and profiler device
+    time of the kernel and of the plain version run on the card's tensors,
+    beside the bound (bytes once over 3.35 TB/s). Returns the kernels
+    line's row."""
+    import torch
+
+    from tpu_joints_torch.serve import depth as D
+    from tpu_joints_torch.serve.depth_cases import CASES
+    from tpu_joints_torch.serve.server import depth_block
+
+    def inputs(depth, fov):
+        xs, ys = D.pixel_scales(depth.shape[1], depth.shape[0], fov)
+        return [torch.from_numpy(a).to(dev) for a in (depth, xs, ys)]
+
+    for name, case in sorted(CASES.items()):
+        depth, kw, cap = case()
+        block = depth_block(*depth.shape, cap)
+        near, far = kw.get("near", 0.0), kw.get("far", 0.0)
+        args = inputs(depth, kw["fov_deg"])
+        before = D.unproject.launches
+        got = D.unproject(*args, near, far, block)
+        torch.cuda.synchronize()
+        want = D.unproject_reference(*(a.cpu() for a in args), near, far,
+                                     block)
+        img, vmask, counts = (t.cpu() for t in got)
+        if not (D.unproject.launches == before + 1
+                and torch.equal(img.view(torch.int32),
+                                want[0].view(torch.int32))
+                and torch.equal(vmask, want[1])
+                and torch.equal(counts, want[2])):
+            raise RuntimeError(f"unproject disagrees with its plain version "
+                               f"({name}, {depth.shape[1]}x{depth.shape[0]}, "
+                               f"block {block})")
+        print(f"# phase 3.1 unproject {name} {depth.shape[1]}x"
+              f"{depth.shape[0]} block {block}: bit-equal, counts "
+              f"{counts.tolist()} {card}", flush=True)
+    depth, kw, cap = CASES["metric_noisy"]()
+    H, W = depth.shape
+    block = depth_block(H, W, cap)
+    args = inputs(depth, kw["fov_deg"])
+    fns = {"kernel": lambda: D.unproject(*args, 0.0, 0.0, block),
+           "plain": lambda: D.unproject_reference(*args, 0.0, 0.0, block)}
+    ev = {n: _event_ms(f) for n, f in fns.items()}
+    dv = {n: _device_ms(f) for n, f in fns.items()}
+    Hc, Wc = H - H % block, W - W % block
+    nbytes = 4 * (H * W + H + W) + 13 * Hc * Wc + 8
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"# timing phase 3.1 unproject {W}x{H} block {block} ({nbytes} "
+          f"bytes): median of 20 CUDA-event runs, ms: kernel "
+          f"{ev['kernel']:.4f}, plain {ev['plain']:.4f}; device time per "
+          f"call (profiler, 20 calls), ms: kernel {dv['kernel']:.4f}, plain "
+          f"{dv['plain']:.4f}; bound {bound_ms:.5f} ms (bytes), dev against "
+          f"the bound {100 * bound_ms / dv['kernel']:.1f}% {card}",
+          flush=True)
+    return {"name": "unproject", "route": "cuda",
+            "source": "tpu_joints_torch/neighbors/csrc/unproject.cu",
+            "replaces": None, "shape": [H, W, block], "label": "bench frame",
+            "cases": len(CASES), "ms": ev["kernel"], "dev_ms": dv["kernel"],
+            "plain_ms": ev["plain"], "plain_dev_ms": dv["plain"],
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
 class _Recorder:
@@ -2577,6 +2647,8 @@ def _captured_phase(dev, card, bank, cfgs, frames, part_banks, api):
         else:
             refs = [None] * len(frames_h)
             for imgs, vms, block, res in batches:
+                # the card's service batches its own unprojected frames
+                imgs, vms = imgs.cpu().numpy(), vms.cpu().numpy()
                 res_e, _ = D._detect_organized_batch_eager(
                     torch.as_tensor(imgs, device=dev),
                     torch.as_tensor(vms, device=dev), bank, cfg, block=block,
@@ -3181,8 +3253,9 @@ def main() -> None:
     with ThreadPoolExecutor(1) as ex:
         small = ex.submit(_small_on, torch.device("cpu"))
         pk.build_all()
-        print(f"# phase 2 build: nn1.cu (tj_nn1, tj_nn1_batched) and knnk.cu "
-              f"(tj_knnk) compiled (in parallel) and bound in "
+        print(f"# phase 2 build: nn1.cu (tj_nn1, tj_nn1_batched), knnk.cu "
+              f"(tj_knnk) and unproject.cu (tj_unproject) compiled (in "
+              f"parallel) and bound in "
               f"{time.perf_counter() - t0:.3f} s {card}", flush=True)
         small_cpu = small.result()
     print(f"# phase 2 the small paths on the CPU done "
@@ -3293,6 +3366,8 @@ def main() -> None:
     timings["batched"].append(_time_nn1_batched(
         pk, bpts(8, 8192), bpts(8, 2560), bmsk(8, 2560, 0.0), card,
         "phase 3 K1 batched (batch ICP shape)", yardsticks=True))
+
+    unproject_row = _unproject_phase(dev, card)
 
     # --- phase 4: the 42-view bank on the card ----------------------------
     print(f"# phase 4 starts {time.perf_counter() - _T_START:.1f} s "
@@ -3792,6 +3867,7 @@ def main() -> None:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": None, "cdist_topk_ms": row["cdist_topk_ms"],
             "timings": timings[kk]})
+    kernels.append(unproject_row)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

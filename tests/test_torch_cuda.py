@@ -868,3 +868,168 @@ def test_a_warmed_traced_service_captures_nothing_on_card():
     device = [r for r in recs if r.clock == "device"]
     assert len(device) == 12
     assert all(r.parent.name == "graphs.replay" and r.ns > 0 for r in device)
+
+
+def _unproject_inputs(depth, fov_deg, device):
+    from tpu_joints_torch.serve.depth import pixel_scales
+
+    xs, ys = pixel_scales(depth.shape[1], depth.shape[0], fov_deg)
+    return [torch.from_numpy(a).to(device) for a in (depth, xs, ys)]
+
+
+def _unproject_cases():
+    """(label, depth, fov, near, far, block) of every ``depth_cases`` case
+    and of four of the benchmark's seeded frames (``make_pool``)."""
+    from benchmark import cells, frames
+    from tpu_joints_torch.serve.depth_cases import CASES
+    from tpu_joints_torch.serve.server import depth_block
+
+    out = []
+    for name, case in sorted(CASES.items()):
+        depth, kw, cap = case()
+        out.append((name, depth, kw["fov_deg"], kw.get("near", 0.0),
+                    kw.get("far", 0.0), depth_block(*depth.shape, cap)))
+    config = cells.resolve("joint_organized.cam1")["config"]
+    scene = frames.Scene(config)
+    pool = frames.make_pool(scene, 4, 2 ** 31 + 977, "cuda")
+    cap = config["detection"]["scene_capacity"]
+    for i, depth in enumerate(pool["depth"]):
+        out.append((f"make_pool frame {i}", depth, scene.fov_deg, 0.0, 0.0,
+                    depth_block(*depth.shape, cap)))
+    return out
+
+
+@pytest.mark.cuda
+def test_unproject_kernel_equals_plain_on_card():
+    """The unprojection kernel equals its plain version bit for bit (img
+    as float32 bits, vmask, both counts) on every ``depth_cases`` case —
+    the sensor frame, the far threshold, non-finite, non-positive and
+    overflowing depths, the crops, blocks 1, 4, 8 and 16, the scalar and
+    the 16-byte paths — and on the benchmark's seeded frames; one launch
+    each."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.serve import depth as D
+
+    for label, depth, fov, near, far, block in _unproject_cases():
+        args = _unproject_inputs(depth, fov, "cuda")
+        before = D.unproject.launches
+        got = D.unproject(*args, near, far, block)
+        torch.cuda.synchronize()
+        assert D.unproject.launches == before + 1, label
+        want = D.unproject_reference(*(a.cpu() for a in args), near, far,
+                                     block)
+        img, vmask, counts = (t.cpu() for t in got)
+        assert torch.equal(img.view(torch.int32),
+                           want[0].view(torch.int32)), label
+        assert torch.equal(vmask, want[1]), label
+        assert torch.equal(counts, want[2]), label
+
+
+@pytest.mark.cuda
+def test_a_served_frame_unprojects_once_on_card(monkeypatch):
+    """A served depth frame makes one ``unproject`` launch and one graph
+    replay, and never calls the host ``depth_to_cloud``; its reply equals
+    the reply to the same frame unprojected on the host and handed to the
+    same captured chain."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.core import spans
+    from tpu_joints_torch.serve import DetectionService
+    from tpu_joints_torch.serve import depth as D
+    from tpu_joints_torch.serve import server
+
+    bank, cfg, img, valid, _ = _organized_problem()
+    depth = torch.where(valid, img[..., 2], 0.0).cpu().numpy()
+
+    def no_host_unprojection(*a, **k):
+        raise AssertionError("a served frame called depth_to_cloud")
+
+    spans.enable(True)          # before the warm-up, as serve --trace does
+    try:
+        service = DetectionService(bank, cfg)
+        service.warmup(depth_shape=depth.shape)
+        host = service._host_frame(depth, 57.0)
+        want = service._payload(*service._guarded(
+            lambda: server.detect_mod.detect_organized(
+                torch.from_numpy(host[1]).cuda(),
+                torch.from_numpy(host[2]).cuda(), bank, cfg, block=host[0],
+                half_window=5, fused=True)[0]), cfg)
+        monkeypatch.setattr(server, "depth_to_cloud", no_host_unprojection)
+        before = D.unproject.launches
+        spans.drain()
+        got = service.detect_depth(depth)
+        torch.cuda.synchronize()
+        recs = spans.drain()
+    finally:
+        spans.enable(False)
+    assert D.unproject.launches == before + 1
+    names = [r.name for r in recs if r.clock == "host"]
+    assert names.count("graphs.replay") == 1
+    assert "graphs.capture" not in names
+    assert names.count("serve.unproject") == names.count("serve.upload") == 1
+    got.pop("latency_ms"), want.pop("latency_ms")
+    assert got == want
+
+
+@pytest.mark.cuda
+def test_two_request_threads_batch_as_each_frame_alone_on_card():
+    """Two request threads on a ``batch_max`` 2 service, each with its own
+    frame (the joint 3 cm apart), each unprojecting it on the service's
+    side stream, coalesce into one batch of 2. Each reply equals, bit for
+    bit, its entry of that batch run on the same two frames unprojected on
+    the host in NumPy, and keeps the working set the frame gets alone: a
+    frame read before its kernel finished, or in place of the other, would
+    differ."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import threading
+    import time
+
+    from tpu_joints_torch import synthetic as syn
+    from tpu_joints_torch.core.ops import tree_map
+    from tpu_joints_torch.serve import DetectionService
+
+    bank, cfg, _, _, _ = _organized_problem()
+    depths = []
+    for dx in (0.0, 0.03):
+        T = syn.bench_pose().copy()
+        T[0, 3] += dx
+        xyz, valid = syn.frame(T, 42, with_table=True, width=320, height=240)
+        depths.append(np.where(valid, xyz[..., 2], 0.0).astype(np.float32))
+    service = DetectionService(bank, cfg, batch_max=2, batch_window_ms=5000.0)
+    service.warmup(depth_shape=depths[0].shape)
+    alone = [service.detect_depth(d) for d in depths]
+    hosts = [service._host_frame(d, 57.0) for d in depths]
+    batch = service._run_batch(
+        torch.stack([torch.from_numpy(h[1]) for h in hosts]).cuda(),
+        torch.stack([torch.from_numpy(h[2]) for h in hosts]).cuda(),
+        hosts[0][0])
+    want = [service._payload(tree_map(lambda a, i=i: a[i], batch), 0.0, cfg)
+            for i in (0, 1)]
+    batcher, = service._batchers.values()
+    batches, frames = service.n_batches, service.n_batched_frames
+    got = [None, None]
+
+    def request(i):
+        got[i] = service.detect_depth(depths[i])
+
+    threads = [threading.Thread(target=request, args=(i,)) for i in (0, 1)]
+    threads[0].start()
+    deadline = time.monotonic() + 60
+    while len(batcher._queue) < 1 and time.monotonic() < deadline:
+        time.sleep(0.001)             # frame 0 first in the batch
+    threads[1].start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    assert not any(t.is_alive() for t in threads)
+    assert (service.n_batches, service.n_batched_frames) == (batches + 1,
+                                                             frames + 2)
+    for out, ref, single in zip(got, want, alone):
+        assert (out["metrics"]["scene_points"]
+                == single["metrics"]["scene_points"])
+        out.pop("latency_ms"), ref.pop("latency_ms")
+        assert out == ref
+    assert (got[0]["metrics"]["scene_points"]
+            != got[1]["metrics"]["scene_points"])

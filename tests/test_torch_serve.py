@@ -50,6 +50,8 @@ from tpu_joints_torch.segment import organized as torg
 from tpu_joints_torch.serve import (DetectionService, FakeDepthCamera,
                                     depth_to_cloud, make_server)
 from tpu_joints_torch.serve import depth as tdepth
+from tpu_joints_torch.serve import depth_cases
+from tpu_joints_torch.serve.server import depth_block
 from tpu_joints_torch.serve.batching import FrameBatcher, to_host
 
 jcli = importlib.import_module("tpu_joints.cli.main")
@@ -123,6 +125,54 @@ def test_depth_module_matches_jax(size):
                                       jc.render(pts, splat=splat))
         np.testing.assert_array_equal(tc.cloud(pts, splat=splat),
                                       jc.cloud(pts, splat=splat))
+
+
+def _numpy_frame(depth, capacity, fov_deg=57.0, near=0.0, far=0.0):
+    """The served frame as the service made it on the host before the
+    unprojection moved to the device: (block, img, vmask, n_tiles,
+    n_valid), NumPy throughout."""
+    xyz = depth_to_cloud(depth, fov_deg=fov_deg, near=near, far=far)
+    valid = np.isfinite(xyz).all(axis=-1)
+    H, W = depth.shape
+    block = depth_block(H, W, capacity)
+    Hc, Wc = H - H % block, W - W % block
+    vmask = valid[:Hc, :Wc]
+    n_tiles = int(vmask.reshape(Hc // block, block, Wc // block,
+                                block).any((1, 3)).sum())
+    return block, np.nan_to_num(xyz[:Hc, :Wc]), vmask, n_tiles, int(valid.sum())
+
+
+@pytest.mark.parametrize("case", sorted(depth_cases.CASES))
+def test_unproject_equals_the_numpy_frame(case, service):
+    """The unprojection's plain version, the service's ``_frame`` on the
+    CPU (which runs it) and the mesh's host ``_host_frame`` each equal the
+    NumPy frame bit for bit: img (as float32 bits: +0 at invalid pixels,
+    ±FLT_MAX where a coordinate overflowed), vmask, the tile count of the
+    crop and the valid count of the whole frame."""
+    depth, kw, capacity = depth_cases.CASES[case]()
+    block, img, vmask, n_tiles, n_valid = _numpy_frame(depth, capacity, **kw)
+    assert block == {"block8": 8, "block16": 16, "tiny_block1": 1}.get(case, 4)
+    assert n_valid > 0
+    xs, ys = (torch.from_numpy(t) for t in
+              tdepth.pixel_scales(depth.shape[1], depth.shape[0],
+                                  kw["fov_deg"]))
+    near, far = kw.get("near", 0.0), kw.get("far", 0.0)
+    before = tdepth.unproject.launches
+    p_img, p_vmask, counts = tdepth.unproject(torch.from_numpy(depth), xs, ys,
+                                              near, far, block)
+    assert tdepth.unproject.launches == before     # the CPU launches nothing
+    svc = DetectionService(service.bank, dataclasses.replace(
+        service.cfg, scene_capacity=capacity))
+    got = {"plain": (block, p_img, p_vmask, *counts.tolist()),
+           "service": svc._frame(depth, **kw),
+           "mesh host": svc._host_frame(depth, **kw)}
+    for name, (g_block, g_img, g_vmask, g_tiles, g_valid) in got.items():
+        g_img, g_vmask = np.asarray(g_img), np.asarray(g_vmask)
+        assert (g_block, g_tiles, g_valid) == (block, n_tiles, n_valid), name
+        assert g_img.dtype == np.float32 and g_vmask.dtype == bool, name
+        np.testing.assert_array_equal(g_img.view(np.uint32),
+                                      img.view(np.uint32), err_msg=name)
+        np.testing.assert_array_equal(g_vmask, vmask, err_msg=name)
 
 
 # ---------------------------------------------------------------------------

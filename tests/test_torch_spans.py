@@ -35,9 +35,9 @@ from tpu_joints_torch.serve.batching import FrameBatcher
 
 tdet = importlib.import_module("tpu_joints_torch.pipelines.detect")
 
-FRAME = ["serve.unproject", "serve.queue", "serve.upload", "serve.upload",
-         "chain.ingest", "chain.features", "chain.match", "chain.refine",
-         "serve.to_host", "serve.payload"]
+FRAME = ["serve.upload", "serve.unproject", "serve.queue", "chain.ingest",
+         "chain.features", "chain.match", "chain.refine", "serve.to_host",
+         "serve.payload"]
 
 
 @pytest.fixture
@@ -138,7 +138,7 @@ def test_a_served_frame_is_one_tree_of_its_layers(served, spans_on):
                and frame.start_ns <= r.start_ns <= r.end_ns <= frame.end_ns
                for r in kids)
     total = spans.summary()
-    assert total["serve.upload"]["count"] == 2
+    assert total["serve.upload"]["count"] == 1
     assert total["serve.frame"]["mean_ms"] == pytest.approx(frame.ns / 1e6)
 
 
@@ -173,7 +173,7 @@ def test_healthz_reports_the_span_summary(served):
         server.server_close()
         t.join(timeout=30)
     assert set(summary) == set(FRAME) | {"serve.frame"}
-    assert summary["serve.upload"]["count"] == 2
+    assert summary["serve.upload"]["count"] == 1
     assert summary["serve.frame"]["count"] == 1
     assert summary["serve.frame"]["mean_ms"] > summary["chain.refine"][
         "mean_ms"] > 0

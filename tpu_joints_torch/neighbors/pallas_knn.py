@@ -7,7 +7,9 @@ has the batch mode the TPU kernel gains under ``jax.vmap`` (the batch as an
 outer grid axis): ``nn1_batched`` searches entry b of ``query [B, M, 3]`` in
 entry b of ``source [B, N, 3]`` under ``source_mask [B, N]``, in one launch
 (``tj_nn1_batched`` in ``csrc/nn1.cu``), equal bit for bit to B ``nn1``
-calls. Each source is compiled with nvcc for ``sm_90a`` on first use into
+calls. The same route builds ``csrc/unproject.cu``, the served depth
+frame's kernel (``serve/depth.py::unproject``; it replaces no TPU kernel).
+Each source is compiled with nvcc for ``sm_90a`` on first use into
 ``tpu_joints_torch/_build/`` (keyed by a hash of the source, the shared
 headers and the flags) and
 bound with ctypes -- no ninja, no PyTorch headers. :func:`build_all` starts
@@ -58,12 +60,14 @@ _NN1_ELEMS = 1 << 25
 _BLOCK_ELEMS = 1 << 24
 _NVCC_FLAGS = ("-O3", "-gencode=arch=compute_90a,code=sm_90a", "--fmad=false",
               "-std=c++17", "-shared", "-Xcompiler", "-fPIC")
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # source file -> {C entry point: its argument types}; the wrapper ``name``
 # launches entry ``tj_<name>``
 _ENTRY = {"nn1": {"tj_nn1": [_P] * 5 + [_I, _I, _P],
                   "tj_nn1_batched": [_P] * 5 + [_I, _I, _I, _P]},
-          "knnk": {"tj_knnk": [_P] * 5 + [_I, _I, _I, _P]}}
+          "knnk": {"tj_knnk": [_P] * 5 + [_I, _I, _I, _P]},
+          "unproject": {"tj_unproject": [_P] * 6 + [_I] * 3 + [_F] * 3
+                        + [_P]}}
 _SOURCE_OF = {entry[3:]: src for src, entries in _ENTRY.items()
               for entry in entries}
 _build_lock = threading.Lock()
@@ -138,7 +142,8 @@ def load_library(name: str = "nn1") -> ctypes.CDLL:
 
 
 def build_all() -> None:
-    """Build every kernel of this module in parallel and bind them."""
+    """Build every kernel library of this module in parallel (K1, K2 and
+    ``unproject``) and bind them."""
     with _build_lock:
         _compile(_ENTRY)
     for name in _ENTRY:
@@ -365,8 +370,8 @@ def knn_pallas(query: torch.Tensor, source: torch.Tensor, k: int,
 
 
 def pallas_available() -> bool:
-    """True when a CUDA card is visible and both kernels' libraries build
-    and bind."""
+    """True when a CUDA card is visible and every kernel library of this
+    module builds and binds."""
     if not torch.cuda.is_available():
         return False
     try:

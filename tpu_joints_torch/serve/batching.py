@@ -80,6 +80,14 @@ def _to_host(tree):
     return tree_map(unpack, tree)
 
 
+def _stack(frames: list):
+    """One batch of frames: ``torch.stack`` for tensors (a card's, already
+    on it), ``np.stack`` for host arrays (a mesh's)."""
+    if isinstance(frames[0], torch.Tensor):
+        return torch.stack(frames)
+    return np.stack(frames)
+
+
 class _Entry:
     __slots__ = ("img", "vmask", "done", "result", "error", "started_ns")
 
@@ -96,7 +104,8 @@ class FrameBatcher:
     """Collect concurrent same-shape frames into one batched pass.
 
     ``run_batch(imgs [B,H,W,3], vmasks [B,H,W]) -> result with leading
-    batch axis`` is the only device-facing hook; index ``i`` of every leaf
+    batch axis`` is the only device-facing hook (the frames stacked as they
+    were submitted: tensors, or host arrays); index ``i`` of every leaf
     of its return must be frame ``i``'s result. The batcher moves the
     result to the host once (``to_host``) and hands each waiter its slice.
     ``max_batch`` bounds one pass; ``window_ms`` is how long the leader
@@ -161,8 +170,8 @@ class FrameBatcher:
             for e in batch:
                 e.started_ns = started
         try:
-            out = to_host(self.run_batch(np.stack([e.img for e in batch]),
-                                         np.stack([e.vmask for e in batch])))
+            out = to_host(self.run_batch(_stack([e.img for e in batch]),
+                                         _stack([e.vmask for e in batch])))
             self.n_batches += 1
             self.n_batched_frames += len(batch)
             for i, e in enumerate(batch):

@@ -1,5 +1,5 @@
 """Depth-buffer → organized cloud projection + fake scene camera
-(counterpart of ``tpu_joints/serve/depth.py``, numpy only).
+(counterpart of ``tpu_joints/serve/depth.py``).
 
 The reference's simulation bridge converts the V-REP depth buffer into an
 organized XYZ cloud with cached per-pixel x/y scale factors (reference
@@ -9,12 +9,24 @@ projection is kept here, as a host-side ingestion utility, plus a
 z-buffers a synthetic scene into a depth image so the server can be driven
 end to end with no simulator or robot; ``raycast_cylinders`` gives the
 dense depth a real sensor returns.
+
+``unproject`` is the served frame's projection as the organized chain
+takes it (the port's own; the JAX package does this on the host): one
+CUDA kernel (``neighbors/csrc/unproject.cu``) for a frame on a card, its
+plain PyTorch version :func:`unproject_reference` for one on the CPU.
 """
 from __future__ import annotations
 
+import threading
+from collections import Counter
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
+
+from tpu_joints_torch.neighbors.pallas_knn import load_library
+
+_count_lock = threading.Lock()
 
 
 def pixel_scales(
@@ -69,6 +81,111 @@ def depth_to_cloud(
         invalid |= z >= max_valid_depth
     xyz[invalid] = np.nan
     return xyz
+
+
+def unproject_scalars(near: float = 0.0, far: float = 0.0
+                      ) -> Tuple[np.float32, np.float32, np.float32]:
+    """(near, range, max_valid) as float32, rounded as NumPy's weak scalars
+    round them in :func:`depth_to_cloud`: ``far - near`` in float64, then
+    to float32 for the multiply; ``far·(1 − 1e-4)`` to float32 for the
+    compare. A metric frame (``far <= near``) gets (0, 1, +inf):
+    ``0 + d·1`` is ``d``, save that −0 becomes +0, invalid either way."""
+    if far > near:
+        return (np.float32(near), np.float32(far - near),
+                np.float32(far * (1.0 - 1e-4)))
+    return np.float32(0.0), np.float32(1.0), np.float32(np.inf)
+
+
+def _check_unproject(depth: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+                     block: int) -> None:
+    H, W = depth.shape if depth.ndim == 2 else (None, None)
+    if H is None or tuple(xs.shape) != (W,) or tuple(ys.shape) != (H,):
+        raise ValueError(f"unproject takes depth [H, W], xs [W] and ys [H], "
+                         f"got {tuple(depth.shape)}, {tuple(xs.shape)} and "
+                         f"{tuple(ys.shape)}")
+    if not all(t.dtype == torch.float32 for t in (depth, xs, ys)):
+        raise TypeError("unproject takes float32 depth and scales")
+    if not depth.device == xs.device == ys.device:
+        raise ValueError("unproject inputs must share one device")
+    if not 1 <= block <= 16:
+        raise ValueError(f"unproject takes 1 <= block <= 16, got {block}")
+
+
+def unproject_reference(depth: torch.Tensor, xs: torch.Tensor,
+                        ys: torch.Tensor, near: float = 0.0, far: float = 0.0,
+                        block: int = 1):
+    """Plain PyTorch version of the ``unproject`` kernel, the same float32
+    operations one by one: :func:`depth_to_cloud`, its finite mask,
+    ``nan_to_num`` of the crop and the tile count, as the server's NumPy
+    frame computes them (see :func:`unproject`)."""
+    _check_unproject(depth, xs, ys, block)
+    near32, range32, max32 = (torch.tensor(v) for v in
+                              unproject_scalars(near, far))
+    H, W = depth.shape
+    Hc, Wc = H - H % block, W - W % block
+    z = near32 + depth * range32
+    x = z * xs[None, :]
+    y = z * ys[:, None]
+    ok = torch.isfinite(z) & (z > 0) & (z < max32)
+    valid = ok & torch.isfinite(x) & torch.isfinite(y)
+    xyz = torch.stack([x, y, z], -1)[:Hc, :Wc]
+    img = torch.where(ok[:Hc, :Wc, None], torch.nan_to_num(xyz, nan=0.0),
+                      0.0)
+    vmask = valid[:Hc, :Wc]
+    n_tiles = vmask.reshape(Hc // block, block, Wc // block,
+                            block).any(3).any(1).sum()
+    counts = torch.stack([n_tiles, valid.sum()]).to(torch.int32)
+    return img.contiguous(), vmask.contiguous(), counts
+
+
+def unproject(depth: torch.Tensor, xs: torch.Tensor, ys: torch.Tensor,
+              near: float = 0.0, far: float = 0.0, block: int = 1):
+    """A depth frame as the organized chain takes it, on the frame's device.
+
+    ``depth`` float32[H, W] (metric, or normalized 0..1 mapped to
+    ``near + d·(far − near)`` when ``far > near``, as in
+    :func:`depth_to_cloud`), ``xs`` float32[W] and ``ys`` float32[H] from
+    :func:`pixel_scales`, ``block`` the tile edge. Returns ``(img
+    float32[Hc, Wc, 3], vmask bool[Hc, Wc], counts int32[2])``, cropped to
+    ``Hc = H − H % block``, ``Wc = W − W % block``: ``img`` is
+    ``nan_to_num(depth_to_cloud(...))`` of the crop, ``vmask`` where all
+    three coordinates are finite, ``counts`` = (block² tiles of the crop
+    with a valid pixel, valid pixels of the whole frame). Equal bit for bit
+    to the server's NumPy frame.
+
+    A CUDA tensor launches the kernel on the current stream (a failed build
+    or launch raises); a CPU tensor takes :func:`unproject_reference`.
+    ``unproject.launches`` and ``unproject.by_device`` count the launches.
+    """
+    _check_unproject(depth, xs, ys, block)
+    if depth.device.type == "cpu":
+        return unproject_reference(depth, xs, ys, near, far, block)
+    if depth.device.type != "cuda":
+        raise ValueError(f"unproject runs on cpu or cuda, not {depth.device}")
+    lib = load_library("unproject")
+    depth, xs, ys = depth.contiguous(), xs.contiguous(), ys.contiguous()
+    H, W = depth.shape
+    Hc, Wc = H - H % block, W - W % block
+    img = torch.empty((Hc, Wc, 3), dtype=torch.float32, device=depth.device)
+    vmask = torch.empty((Hc, Wc), dtype=torch.bool, device=depth.device)
+    counts = torch.empty(2, dtype=torch.int32, device=depth.device)
+    stream = torch.cuda.current_stream(depth.device).cuda_stream
+    with torch.cuda.device(depth.device):
+        rc = lib.tj_unproject(depth.data_ptr(), xs.data_ptr(), ys.data_ptr(),
+                              img.data_ptr(), vmask.data_ptr(),
+                              counts.data_ptr(), H, W, block,
+                              *map(float, unproject_scalars(near, far)),
+                              stream)
+    if rc != 0:
+        raise RuntimeError(f"unproject kernel launch failed: cudaError_t {rc}")
+    with _count_lock:             # request threads launch concurrently
+        unproject.launches += 1
+        unproject.by_device[depth.device.index] += 1
+    return img, vmask, counts
+
+
+unproject.launches = 0
+unproject.by_device = Counter()
 
 
 def raycast_cylinders(
