@@ -9,7 +9,8 @@ The control is the program with its own TF32 path switched on
 the package switches off at import: it states float32), and where that
 switch cannot reach — the nearest-neighbour search of its fitness, which
 kernel K1 makes in float32 — the reference put in the program's place with
-its neighbours taken from TF32 distances (``check.Reference.control``):
+its neighbours taken from TF32 distances (the cell's judge's
+``Reference.control``, ``benchmark/reference/check.py``'s by default):
 TF32 is the precision below float32 that a later change would be tempted
 to take, in the matrix products and in a search made as one. Each run is a
 whole cell run (set-up, window, reference) at the cell's own size and

@@ -3,10 +3,11 @@
 A plain PyTorch copy of the port's ``serve/depth.py::raycast_cylinders``
 (analytic dense depth of finite cylinders) and of ``synthetic.frame``'s
 depth noise (σ along the ray), so the harness makes its own inputs and
-never imports the program for them. One raycast of the configuration's
-pose; then a pool of noise draws from ``--seed`` (a ``torch.Generator`` on
-the device, one call for the whole pool); then depth as a sensor gives it:
-metric z, 0 where a ray missed. The pool goes to the host once.
+never imports the program for them. One raycast of the scene's instances
+(copies of the joint, each at its own pose; the nearest hit per ray); then
+a pool of noise draws from ``--seed`` (a ``torch.Generator`` on the device,
+one call for the whole pool); then depth as a sensor gives it: metric z, 0
+where a ray missed. The pool goes to the host once.
 """
 from __future__ import annotations
 
@@ -41,11 +42,16 @@ def pixel_scales(width: int, height: int, fov_deg: float):
     return xs.astype(np.float32), ys.astype(np.float32)
 
 
-def raycast(cylinders, T_model_to_cam: np.ndarray, width: int, height: int,
-            fov_deg: float, device) -> torch.Tensor:
+def raycast(cylinders, poses, width: int, height: int, fov_deg: float,
+            device) -> torch.Tensor:
     """Camera-frame hit points float32[H, W, 3] (NaN at misses) of the
     lateral surfaces of ``cylinders`` ((center, axis, radius, half_length)
-    in the model frame), worked out in float64 on ``device``."""
+    in the model frame), shown at each model→camera pose of ``poses``
+    ([4, 4] for one instance, [K, 4, 4] for K), worked out in float64 on
+    ``device``. Each ray keeps its nearest hit over every instance: the
+    rays are moved into each instance's model frame in turn, in the order
+    given, and a later hit replaces an earlier one only when it is
+    strictly nearer."""
     f64 = dict(dtype=torch.float64, device=device)
     xs, ys = pixel_scales(width, height, fov_deg)
     f32 = dict(dtype=torch.float32, device=device)
@@ -54,31 +60,32 @@ def raycast(cylinders, T_model_to_cam: np.ndarray, width: int, height: int,
                      torch.as_tensor(ys, **f32)[:, None].expand(height, width),
                      torch.ones((height, width), **f32)], -1).reshape(-1, 3)
     d = (d / torch.linalg.vector_norm(d, dim=1, keepdim=True)).double()
-    T = torch.as_tensor(np.asarray(T_model_to_cam, np.float64), **f64)
-    Rmc = T[:3, :3].T
-    o_m = -T[:3, :3].T @ T[:3, 3]
-    d_m = d @ Rmc.T
     best_t = torch.full((d.shape[0],), math.inf, **f64)
-    for c, a, r, h in cylinders:
-        c = torch.as_tensor(np.asarray(c, np.float64), **f64)
-        a = torch.as_tensor(np.asarray(a, np.float64), **f64)
-        a = a / torch.linalg.vector_norm(a)
-        oc = o_m - c
-        o_ax = oc @ a
-        d_ax = d_m @ a
-        o_perp = oc - o_ax * a
-        d_perp = d_m - d_ax[:, None] * a[None, :]
-        A = (d_perp * d_perp).sum(1)
-        B = 2.0 * (d_perp @ o_perp)
-        C = float(o_perp @ o_perp) - r * r
-        disc = B * B - 4.0 * A * C
-        hit = (disc >= 0) & (A > 1e-12)
-        sq = torch.sqrt(torch.clamp_min(disc, 0.0))
-        for sign in (-1.0, 1.0):
-            t = (-B + sign * sq) / torch.clamp_min(2.0 * A, 1e-12)
-            z_ax = o_ax + t * d_ax
-            good = hit & (t > 1e-6) & (z_ax.abs() <= h) & (t < best_t)
-            best_t = torch.where(good, t, best_t)
+    for T in np.asarray(poses, np.float64).reshape(-1, 4, 4):
+        T = torch.as_tensor(T, **f64)
+        Rmc = T[:3, :3].T
+        o_m = -T[:3, :3].T @ T[:3, 3]
+        d_m = d @ Rmc.T
+        for c, a, r, h in cylinders:
+            c = torch.as_tensor(np.asarray(c, np.float64), **f64)
+            a = torch.as_tensor(np.asarray(a, np.float64), **f64)
+            a = a / torch.linalg.vector_norm(a)
+            oc = o_m - c
+            o_ax = oc @ a
+            d_ax = d_m @ a
+            o_perp = oc - o_ax * a
+            d_perp = d_m - d_ax[:, None] * a[None, :]
+            A = (d_perp * d_perp).sum(1)
+            B = 2.0 * (d_perp @ o_perp)
+            C = float(o_perp @ o_perp) - r * r
+            disc = B * B - 4.0 * A * C
+            hit = (disc >= 0) & (A > 1e-12)
+            sq = torch.sqrt(torch.clamp_min(disc, 0.0))
+            for sign in (-1.0, 1.0):
+                t = (-B + sign * sq) / torch.clamp_min(2.0 * A, 1e-12)
+                z_ax = o_ax + t * d_ax
+                good = hit & (t > 1e-6) & (z_ax.abs() <= h) & (t < best_t)
+                best_t = torch.where(good, t, best_t)
     pts = d * best_t[:, None]
     pts = torch.where(torch.isfinite(best_t)[:, None], pts, torch.nan)
     return pts.reshape(height, width, 3).float()
@@ -97,7 +104,9 @@ def noisy_depth(xyz_img: torch.Tensor, sigma: torch.Tensor) -> torch.Tensor:
 
 class Scene:
     """One configuration's scene: the joint's cylinders in the model frame,
-    the pose it is shown at, the sensor."""
+    the instances of the joint it shows (``scene.instances``, a list of
+    poses ``{ay_deg, ax_deg, t}``; a configuration that gives one
+    ``scene.pose`` shows one instance), the sensor."""
 
     def __init__(self, config: dict):
         sc, se = config["scene"], config["sensor"]
@@ -106,20 +115,24 @@ class Scene:
         self.sigma = float(sc["depth_sigma_m"])
         self.width, self.height = int(se["width"]), int(se["height"])
         self.fov_deg = float(se["fov_deg"])
-        p = sc["pose"]
-        self.pose = pose_matrix(p["ay_deg"], p["ax_deg"], p["t"])
+        instances = sc["instances"] if "instances" in sc else [sc["pose"]]
+        self.poses = np.stack([pose_matrix(p["ay_deg"], p["ax_deg"], p["t"])
+                               for p in instances])
+        self.pose = self.poses[0]
 
 
 def make_pool(scene: Scene, n_pool: int, seed: int, device) -> dict:
     """The mix's frames: one raycast, then ``n_pool`` noise draws from
     ``seed``, as depth on the host.
 
-    Returns dict(depth float32[n, H, W] numpy, pose float32[4, 4])."""
+    Returns dict(depth float32[n, H, W] numpy, poses float32[K, 4, 4], the
+    true pose of each instance, and pose = poses[0])."""
     gen = torch.Generator(device=device)
     gen.manual_seed(int(seed) % (2 ** 63))
     H, W = scene.height, scene.width
     sigma = torch.randn((n_pool, H, W), generator=gen, device=device,
                         dtype=torch.float32) * scene.sigma
-    hit = raycast(scene.cylinders, scene.pose, W, H, scene.fov_deg, device)
+    hit = raycast(scene.cylinders, scene.poses, W, H, scene.fov_deg, device)
     depth = noisy_depth(hit, sigma)
-    return dict(depth=depth.cpu().numpy(), pose=scene.pose)
+    return dict(depth=depth.cpu().numpy(), poses=scene.poses,
+                pose=scene.pose)

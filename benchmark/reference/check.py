@@ -1,11 +1,14 @@
-"""Judge the replies of a window against the reference.
+"""Judge the replies of a window against the reference: the judge of a
+configuration that names none (``benchmark/cells.py::judge``), for a
+scene of one joint.
 
 Every reply is held to the configuration's gate against the true pose
-(the frame maker's): an accepted pose lies within the stated rotation and
-translation errors (``bench.py``'s stream gate), and at least the stated
-share of the frames is accepted; a request that raised is a failure. A
-sample of the replies, drawn from the seed, is also held to what the
-reference works out again from the same depth frame, in float64:
+(the frame maker's ``pool["pose"]``): an accepted pose lies within the
+stated rotation and translation errors (``bench.py``'s stream gate), and
+at least the stated share of the frames is accepted; a request that raised
+is a failure. A sample of the replies, drawn from the seed, is also held
+to what the reference works out again from the same depth frame, in
+float64:
 
 * ``ws_gap``  — |the reply's working-set count − the reference's|: the
   organized ingest's tile winners;
@@ -45,6 +48,18 @@ def rot_trans_err(T: np.ndarray, G: np.ndarray):
     c = np.clip((np.trace(Rd) - 1.0) / 2.0, -1.0, 1.0)
     return math.degrees(math.acos(c)), 1000.0 * float(
         np.linalg.norm(T[:3, 3] - G[:3, 3]))
+
+
+def passes(reply: dict, pool: dict, gate: dict) -> bool:
+    """A reply that came and that the gate lets through: an honest
+    rejection, or an accepted pose within the gate's errors of the true
+    pose ``pool["pose"]``."""
+    if reply is None:
+        return False
+    if not reply["accepted"]:
+        return True
+    rot, trans = rot_trans_err(reply["pose"], pool["pose"])
+    return rot <= gate["rot_deg"] and trans <= gate["trans_mm"]
 
 
 def _box(xyz: torch.Tensor):

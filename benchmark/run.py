@@ -10,8 +10,9 @@ card from the seed, builds the bank, builds the service with the mix's
 batching and runs ``warmup`` (which captures the graphs of this cell's
 shapes), then runs every batch size and the loop once more with the real
 frames. The window then runs for ``--seconds``. Afterwards the program's
-state is freed and the reference judges the replies
-(``benchmark/reference/check.py``).
+state is freed and the configuration's judge holds the replies to the
+reference (``benchmark/reference/<judge>.py``, ``check.py`` where the
+configuration names none).
 
 With ``--trace 0`` the result's metrics are the cell's end-to-end metrics,
 taken on the host's clock; with ``--trace 1`` they are the per-layer ones,
@@ -90,19 +91,6 @@ def _warm(service, frames, mix: dict, fov: float) -> None:
              frames_per_camera=int(mix["warm_rounds"]))
 
 
-def passes(reply: dict, true_pose, gate: dict) -> bool:
-    """A reply that came and that the gate lets through: an honest
-    rejection, or an accepted pose within the gate's errors."""
-    from benchmark.reference.check import rot_trans_err
-
-    if reply is None:
-        return False
-    if not reply["accepted"]:
-        return True
-    rot, trans = rot_trans_err(reply["pose"], true_pose)
-    return rot <= gate["rot_deg"] and trans <= gate["trans_mm"]
-
-
 def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
              device: str = "cuda", control: bool = False) -> tuple:
     """Set up, run the window and judge it. Returns (the result line, with
@@ -110,11 +98,13 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     standard error). With ``trace`` a second window of the same length
     follows the first under the profiler: the host-clock readers read the
     first, the device readers the second. ``control`` judges the control
-    (``benchmark/control.py``) in the program's place."""
+    (``benchmark/control.py``) in the program's place. The cell's
+    ``judge`` module decides which replies pass and holds a sample to the
+    reference."""
     import torch
 
     from benchmark import frames as frames_mod
-    from benchmark.reference import check, joint
+    from benchmark.reference import joint
     from benchmark.traffic import run_load
     from tpu_joints_torch.config import DetectionConfig
     from tpu_joints_torch.core import graphs
@@ -128,7 +118,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
         if on_card:
             torch.cuda.synchronize()
 
-    config, mix = cell["config"], cell["traffic"]
+    config, mix, judge = cell["config"], cell["traffic"], cell["judge"]
     det = DetectionConfig(**config["detection"])
     scene = frames_mod.Scene(config)
     pool = frames_mod.make_pool(scene, int(mix["pool"]), seed, device)
@@ -194,12 +184,12 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
     records = load["records"] + (traced["records"] if traced else [])
     gate = config["gate"]
     for r in records:
-        r["passed"] = passes(r["reply"], pool["pose"], gate)
+        r["passed"] = judge.passes(r["reply"], pool, gate)
     window = [r for r in load["records"] if r["t_done"] <= load["t_end"]]
     lat = [1000.0 * (r["t_done"] - r["t_start"]) for r in window]
     t = time.perf_counter()
-    ref = check.Reference(config, pool, device)
-    verdict = check.judge_window(ref, records, seed, config["limits"],
+    ref = judge.Reference(config, pool, device)
+    verdict = judge.judge_window(ref, records, seed, config["limits"],
                                  CHECK_SAMPLE, control=control)
     reference_s = time.perf_counter() - t
     line = dict(correct=verdict["correct"], attempted=len(records),
@@ -211,7 +201,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool,
                    trace=summary,
                    counters={k: after[k] - before[k] for k in after},
                    setup=dict(bank_s=bank_s, warm_s=warm_s), config=config,
-                   traffic=mix)
+                   traffic=mix, poses=pool["poses"])
         metrics = {}
         for m in cell["per_layer"]:
             from benchmark.cells import reader

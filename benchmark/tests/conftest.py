@@ -17,3 +17,30 @@ def tiny_cell():
         return cell
 
     return make
+
+
+@pytest.fixture
+def cpu_trace(monkeypatch):
+    """``benchmark.trace.Trace`` stood in for by the CPU profiler, so that a
+    ``--trace 1`` run goes through on the CPU (no device activity: the
+    window reads idle throughout)."""
+    import time
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from benchmark import trace
+
+    class CpuTrace(trace.Trace):
+        def __init__(self):
+            self.prof = profile(activities=[ProfilerActivity.CPU])
+            self.t0 = self.t1 = 0
+
+        def start(self):
+            self.prof.__enter__()
+            self.t0 = time.time_ns()
+
+        def stop(self):
+            self.t1 = time.time_ns()
+            self.prof.__exit__(None, None, None)
+
+    monkeypatch.setattr(trace, "Trace", CpuTrace)

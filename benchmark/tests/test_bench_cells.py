@@ -35,18 +35,36 @@ def test_a_metric_lists_its_cells():
     assert {m["name"] for m in cells.spec()["per_layer"]} <= names
 
 
+JUDGE = """
+def passes(reply, pool, gate):
+    return reply is not None
+
+
+class Reference:
+    def __init__(self, config, pool, device):
+        self.pool = pool
+
+
+def judge_window(ref, records, seed, limits, sample, control=False):
+    n = float(len(ref.pool["poses"]))
+    return dict(correct=bool(records), numbers=dict(instances=(n, n)),
+                judged=0)
+"""
+
+
 def test_new_files_are_found_by_name(tmp_path, monkeypatch):
-    """A configuration, a mix and a reader that a later change adds as new
-    files are found with no edit of the harness."""
-    for sub in ("configs", "traffic", "metrics"):
+    """A configuration, a mix, a judge and a reader that a later change
+    adds as new files are found with no edit of the harness."""
+    for sub in ("configs", "traffic", "metrics", "reference"):
         (tmp_path / sub).mkdir()
     cfg = json.loads((cells.HERE / "configs" / "joint_organized.json")
                      .read_text())
-    cfg["name"] = "joint_other"
+    cfg.update(name="joint_other", judge="other_judge")
     (tmp_path / "configs" / "joint_other.json").write_text(json.dumps(cfg))
     (tmp_path / "traffic" / "burst.json").write_text(json.dumps({"cameras": 2}))
     (tmp_path / "metrics" / "x.count.py").write_text(
         "def read(ctx):\n    return 7.0\n")
+    (tmp_path / "reference" / "other_judge.py").write_text(JUDGE)
     monkeypatch.setattr(cells, "HERE", tmp_path)
     bench = dict(workloads=[dict(name="joint_other.burst", config="joint_other",
                                  traffic="burst", chips=1)],
@@ -56,6 +74,10 @@ def test_new_files_are_found_by_name(tmp_path, monkeypatch):
     assert cell["config"]["name"] == "joint_other"
     assert cell["traffic"] == {"cameras": 2}
     assert cells.reader("x.count")({}) == 7.0
+    assert cell["judge"].__file__ == str(tmp_path / "reference" /
+                                         "other_judge.py")
+    assert cell["judge"].passes({}, {}, {}) and hasattr(cell["judge"],
+                                                        "Reference")
 
 
 def test_an_unknown_cell_raises():

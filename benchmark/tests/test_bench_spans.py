@@ -85,34 +85,19 @@ def test_innermost_of_two_spans_that_start_together():
         (0, 4, "inner"), (4, 10, "outer")]
 
 
-def test_a_spanned_run_on_the_cpu(tiny_cell, monkeypatch):
+def test_a_spanned_run_on_the_cpu(tiny_cell, cpu_trace, monkeypatch):
     """The whole run (set-up, both windows, the check) at tiny size, the
     profiler on the CPU only: every host reading is read, no stage is (the
     chain is eager on the CPU: its stages are host spans), the card idles
     all window and every idle second is named by a span or unspanned; with
     spans off nothing is read."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from benchmark import cells, trace
-
-    class CpuTrace(trace.Trace):
-        def __init__(self):
-            self.prof = profile(activities=[ProfilerActivity.CPU])
-            self.t0 = self.t1 = 0
-
-        def start(self):
-            self.prof.__enter__()
-            self.t0 = __import__("time").time_ns()
-
-        def stop(self):
-            self.t1 = __import__("time").time_ns()
-            self.prof.__exit__(None, None, None)
+    from benchmark import cells
 
     cell = tiny_cell("joint_organized.cam1")
     cell["config"]["bank"].update(level=0, resolution=64)
     cell["traffic"].update(pool=2)
-    monkeypatch.setattr(trace, "Trace", CpuTrace)
     monkeypatch.setattr(cells, "resolve", lambda name: cell)
     monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda: 0)
     on = bspans.run_spanned("joint_organized.cam1", 2 ** 31 + 5, 1.0,
