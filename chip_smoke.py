@@ -90,9 +90,8 @@ Phases (any failure raises and the exit code is non-zero):
                verify_hypotheses at small size on the card against the CPU;
  11. batch of 8 — detect_organized_batch on bench.py's 8 jittered frames
                with the scene_latency config: 0 host syncs, launches by
-               shape (each ICP iteration one launch of K1's batch mode,
-               rechecked on a recorded input; the two folded coverage
-               launches of K1 rechecked and timed on theirs), every
+               shape (every frame refined on its own: 8 x phase 5's
+               launches, shapes phase 5 rechecked and timed), every
                accepted frame < 5 deg / < 20 mm and >= 70% accepted, each
                frame equal to its own detect_organized run (accept flag,
                n_selected, accepted poses within 3e-4, and the winning view,
@@ -1185,12 +1184,15 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
                     check(q, s_, k, m, f"{label} {shape}, recorded inputs")
             done.add(shape)
 
-    def time_served_shapes(label, rec, shapes):
-        """Time the served-only ``shapes`` on their recorded inputs (K1, or
-        K1's batch mode for a 4-tuple), 5 calls each."""
+    def time_served_shapes(label, rec):
+        """Time the K1 shapes no earlier path launched on their recorded
+        inputs (K1, or K1's batch mode for a 4-tuple), 5 calls each."""
         from tpu_joints_torch.neighbors import pallas_knn as pk
 
-        for shape in shapes:
+        seen = set().union(*(set(c) for c in launches.values()))
+        for shape in sorted(set(rec.shapes()) - seen):
+            if shape[-1] != 1:
+                continue
             q, s_, k, m = rec.first(shape)
             if len(shape) == 4:
                 timings["batched"].append(_time_nn1_batched(
@@ -1350,9 +1352,7 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
                            f"launched K2 {len(rec.k2_calls())} times for "
                            f"{warm_frames} frames")
     recheck_new_shapes("phase 12.3", rec, k2_all=True)
-    time_served_shapes("phase 12.3", rec, [(4, 8192, 8192, 1),
-                                           (131072, 4096, 1),
-                                           (524288, 2048, 1)])
+    time_served_shapes("phase 12.3", rec)
     launches["served segmented"] = rec.shapes()
     single = DetectionService(bank, seg_box_cfg)
     worst_box, n_acc = 0.0, 0
@@ -1414,9 +1414,7 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
         raise RuntimeError(f"the HV batch read the host {len(syncs)} times "
                            f"in {svc_h.n_batches} batches")
     recheck_new_shapes("phase 12.4", rec)
-    time_served_shapes("phase 12.4", rec, [(2, 24576, 8192, 1),
-                                           (196608, 4096, 1),
-                                           (786432, 2048, 1)])
+    time_served_shapes("phase 12.4", rec)
     launches["served hv"] = rec.shapes()
     def joints(r):
         """The GOOD instances of a result (phase 9's separation), each with
@@ -3349,7 +3347,7 @@ def main() -> None:
         return (torch.rand(b, n, generator=g) >= masked).to(dev)
 
     for B, M, N, masked, label in [
-            (8, 8192, 2560, 0.0, "batch ICP shape"),
+            (8, 8192, 2560, 0.0, "8 entries of the ICP shape"),
             (48, 8192, 16384, 0.5, "HV scene -> instance shape"),
             (2, 70, 100, 0.25, "25% of sources masked"),
             (3, 5000, 3333, 0.1, "N not a multiple of the tile"),
@@ -3692,19 +3690,11 @@ def main() -> None:
     (res_b, n_sel_b), rec, (bat_k1, bat_kb, bat_k2) = counted_frame(
         "phase 11 batch of 8", run_batch)
     launches["batch"] = rec.shapes()
-    want = {(8, 8192, 2560, 1): 16, (327680, 2048, 1): 1, (81920, 4096, 1): 1}
+    # each frame is refined on its own: phase 5's launches, n_batch times
+    want = {shape: n_batch * c for shape, c in launches["organized"].items()}
     if dict(rec.shapes()) != want or bat_k2 != 0:
         raise RuntimeError(f"the batch launched {dict(rec.shapes())}, "
                            f"expected {want}")
-    q, s_, _, m = rec.first((8, 8192, 2560, 1))
-    check_batched(q, s_, m, "batch ICP, recorded inputs")
-    for shape, label in [((327680, 2048, 1), "batch tier-1 coverage"),
-                         ((81920, 4096, 1), "batch tier-2 coverage")]:
-        q, s_, k, m = rec.first(shape)
-        check(q, s_, k, m, label + ", recorded inputs")
-        timings[1].append(_time_knn(pk, q, s_, m, k, card,
-                                    f"phase 11 K1 ({label})", other, reps=5))
-    del q, s_, m
     singles = [detect_organized(imgs[b], valids[b], bank, det_cfg, block=4,
                                 half_window=5, crop_lo=lo, crop_hi=hi)
                for b in range(n_batch)]
@@ -3848,13 +3838,14 @@ def main() -> None:
                     **api_n}.items():
         for kk, i in ((1, 0), ("batched", 1), (2, 2)):
             by_path[kk][path] = n[i]
-    # "launches": K1 over one batch of 8, its batch mode over the same
-    # batch, K2 over the part banks' build
+    # "launches": K1 over one batch of 8, its batch mode over the GO-HV
+    # frame (a batch refines its frames one by one), K2 over the part
+    # banks' build
     for kk, name, src, line, n_launches in (
             (1, "nn1", "nn1", "59", bat_k1),
             ("batched", "nn1_batched", "nn1",
              "92 (under jax.vmap: tpu_joints/pipelines/detect.py:1067, "
-             "tpu_joints/recognize/hv.py:140)", bat_kb),
+             "tpu_joints/recognize/hv.py:140)", hv_kb),
             (2, "knnk", "knnk", "65", parts_k2)):
         row = main_row[kk]
         kernels.append({

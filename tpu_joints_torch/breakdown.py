@@ -264,9 +264,11 @@ def main() -> None:
                             1, dtype=torch.int32), c, n_parts=n))),
         ]
         if label == "hv":
+            from tpu_joints_torch.recognize.hv import verify_hypotheses
+
             def verify(c=c, b=b):
                 r = s["res"]
-                D.verify_hypotheses(
+                verify_hypotheses(
                     *D._registered_views(b, r.cand_views, r.cand_poses),
                     r.cand_valid, s["feats"].cloud,
                     inlier_threshold=c.hv_inlier_threshold,

@@ -24,13 +24,13 @@ whole aligned view, or of its largest smooth cluster: K2 again).
 ``good_instances`` lists every distinct accepted instance of a result.
 
 ``detect_organized_batch`` runs B frames through the same chain at once:
-every stage carries the batch as a leading axis or folds it into an axis it
-already batches over (keypoints into SHOT's rows, frames into Hough's views
-and into the ICP's candidates, whose k=1 searches become one launch of K1's
-batch mode, each frame's candidates against that frame's scene). Three
-stages work on one frame and run frame by frame inside the batched pass:
-the lattice crop chain, the hypothesis verification (joint over one frame's
-candidates) and the clustered box.
+the front end carries the batch as a leading axis or folds it into an axis
+it already batches over (keypoints into SHOT's rows, frames into the match
+product's rows). From the Hough grouping on, and in the lattice crop
+chain, each frame runs on its own inside the batched pass, exactly as its
+own run does it: a sum over B frames' rows adds in another order, and a
+rank-deficient Hough fit or an ICP from it carries that last bit to another
+pose, so a frame's reply would depend on the frames it was batched with.
 
 Shapes are fixed by the config, every branch is on configuration or on
 host facts about the bank (``ModelBank.has_model``), and indexing with a
@@ -79,7 +79,7 @@ from tpu_joints_torch.pipelines.ingest import (ingest_organized_blocks,
                                                ingest_organized_segmented)
 from tpu_joints_torch.recognize.gc import gc_group
 from tpu_joints_torch.recognize.hough import Instances, hough_group
-from tpu_joints_torch.recognize.hv import verify_hypotheses
+from tpu_joints_torch.recognize.hv import verify_hypotheses_counted
 from tpu_joints_torch.recognize.icp import icp_multi, scene_coverage_multi
 from tpu_joints_torch.recognize.matching import Correspondences
 from tpu_joints_torch.recognize.obb import (OBB, oriented_bounding_box,
@@ -549,12 +549,10 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
     (V / n_parts)``.
 
     B frames (``feats`` with a leading batch axis, ``inst`` over B·V views
-    in frame order): the frames' candidate fields are cut like parts and
-    folded into one candidate axis of B·C, frame b's at [b·C, (b+1)·C), so
-    each ICP iteration is one launch of K1's batch mode and each coverage
-    one folded K1 launch; ranking, selection and gates run per frame, and
-    every leaf of the result gains a leading B. The hypothesis verification
-    and the clustered box run frame by frame."""
+    in frame order): the frames' candidate fields are cut like parts, frame
+    b's at [b·C, (b+1)·C), and each frame is refined on its own
+    (:func:`refine_candidates`); every leaf of the result gains a leading
+    B."""
     B = feats.cloud.xyz.shape[0] if feats.cloud.xyz.ndim == 3 else 1
     Vt, P = inst.votes.shape
     top_flat, top_votes = _candidate_cut(inst, cfg, B * n_parts)
@@ -562,6 +560,83 @@ def refine_instances(feats: SceneFeatures, bank: ModelBank, inst: Instances,
     return refine_candidates(feats, bank, BankRows(bank, cand_views), inst,
                              top_flat, top_votes, cand_views, n_corr_total,
                              cfg)
+
+
+def _verify_candidates(feats: SceneFeatures, view_rows,
+                       cand_poses: torch.Tensor, cand_valid: torch.Tensor,
+                       cand_views: torch.Tensor, cfg: DetectionConfig):
+    """GO-HV over one frame's C candidates registered at their tier-1 view
+    poses: (verified bool[C], the ``hv_*`` metrics) — what was judged
+    (``hv_views``, ``hv_view_poses``, ``hv_valid``), the verdict
+    (``hv_verified``), the counts its cost was made of (``hv_explained``,
+    ``hv_outliers``; ``hv_instance_points``, the valid registered points of
+    the valid hypotheses) and the search's ``hv_steps`` and
+    ``hv_steps_improved``. All stay on the device."""
+    inst_xyz, inst_mask = _register(view_rows("view_xyz"),
+                                    view_rows("view_mask"), cand_poses)
+    verified, counts = verify_hypotheses_counted(
+        inst_xyz, inst_mask, cand_valid, feats.cloud,
+        inlier_threshold=cfg.hv_inlier_threshold,
+        outlier_regularizer=cfg.hv_regularizer,
+        occlusion_threshold=cfg.hv_occlusion_threshold)
+    metrics = {
+        "hv_views": cand_views.to(torch.int32),
+        "hv_view_poses": cand_poses,
+        "hv_valid": cand_valid,
+        "hv_verified": verified,
+        "hv_explained": counts["explained"],
+        "hv_outliers": counts["outliers"],
+        "hv_instance_points": (inst_mask & cand_valid[:, None]).sum(
+            dtype=torch.int32),
+        "hv_steps": counts["steps"],
+        "hv_steps_improved": counts["improved"],
+    }
+    return verified, metrics
+
+
+class _FrameRows:
+    """A batch's ``view_rows`` seen from one frame: its candidates are the
+    batch's [lo, lo + C)."""
+
+    def __init__(self, rows, lo: int, C: int):
+        self.rows, self.lo, self.C = rows, lo, C
+
+    def __call__(self, field: str, at: Optional[torch.Tensor] = None):
+        if at is None:
+            return self.rows(field)[self.lo:self.lo + self.C]
+        return self.rows(field, at + self.lo)
+
+
+def _refine_frames(feats: SceneFeatures, bank: ModelBank, view_rows,
+                   inst: Instances, top_flat: torch.Tensor,
+                   top_votes: torch.Tensor, cand_views: torch.Tensor,
+                   n_corr_total: torch.Tensor,
+                   cfg: DetectionConfig) -> DetectionResult:
+    """:func:`refine_candidates` of B frames, each frame on its own and as
+    its own run refines it; every leaf of the result gains a leading B."""
+    B = feats.cloud.xyz.shape[0]
+    C = top_flat.shape[0] // B
+    V = inst.votes.shape[0] // B
+    P = inst.votes.shape[1]
+    outs = []
+    for b in range(B):
+        frame = SceneFeatures(*(
+            Cloud(*(t[b] for t in f)) if isinstance(f, Cloud)
+            else None if f is None else f[b] for f in feats))
+        cut = slice(b * C, (b + 1) * C)
+        outs.append(refine_candidates(
+            frame, bank, _FrameRows(view_rows, b * C, C),
+            Instances(*(t[b * V:(b + 1) * V] for t in inst)),
+            top_flat[cut] - b * V * P, top_votes[cut], cand_views[cut],
+            n_corr_total[b], cfg))
+    first = outs[0]
+    return first._replace(
+        **{f: torch.stack([getattr(o, f) for o in outs])
+           for f in first._fields if f not in ("obb", "metrics")},
+        obb=OBB(*(torch.stack(t) for t in zip(*(o.obb for o in outs)))),
+        metrics={k: (torch.stack([o.metrics[k] for o in outs])
+                     if isinstance(v, torch.Tensor) else v)
+                 for k, v in first.metrics.items()})
 
 
 def refine_candidates(feats: SceneFeatures, bank: ModelBank, view_rows,
@@ -573,10 +648,19 @@ def refine_candidates(feats: SceneFeatures, bank: ModelBank, view_rows,
     ``top_flat`` / ``top_votes`` [B·C] from ``_candidate_cut``,
     ``cand_views`` their bank views, ``view_rows`` their per-view bank rows
     (:class:`BankRows` or the view-sharded batch's gather); ``bank``
-    supplies the full CAD, ``has_model`` and the ICP width only."""
+    supplies the full CAD, ``has_model`` and the ICP width only.
+
+    B frames (``feats`` with a leading batch axis) are refined frame by
+    frame (:func:`_refine_frames`), each exactly as its own run: folded
+    into one candidate axis, the ICP's, the coverage's and the box's sums
+    over B·C rows add in another order than over C, and an ICP from an
+    ill-conditioned Hough start carries that last bit to another pose. The
+    body below works on one frame behind a leading frame axis of one."""
+    if feats.cloud.xyz.ndim == 3:
+        return _refine_frames(feats, bank, view_rows, inst, top_flat,
+                              top_votes, cand_views, n_corr_total, cfg)
     dev = inst.votes.device
-    batched = feats.cloud.xyz.ndim == 3
-    B = feats.cloud.xyz.shape[0] if batched else 1
+    B = 1
     Vt, P = inst.votes.shape
     Ct = top_flat.shape[0]                       # candidates of all frames
     C = Ct // B
@@ -612,21 +696,11 @@ def refine_candidates(feats: SceneFeatures, bank: ModelBank, view_rows,
         with_fitness=not (two_tier and cfg.tier1_skip_view_fitness), **icp_kw)
     cand_fitness = torch.where(cand_valid, cand_fitness, _BIG)
 
+    hv_metrics = {}
     if cfg.hv_enabled:
-        inst_xyz, inst_mask = _register(view_rows("view_xyz"),
-                                        view_rows("view_mask"), cand_poses)
-        hv_kw = dict(inlier_threshold=cfg.hv_inlier_threshold,
-                     outlier_regularizer=cfg.hv_regularizer,
-                     occlusion_threshold=cfg.hv_occlusion_threshold)
-        if batched:      # one joint verification per frame, never across
-            cand_verified = torch.cat([verify_hypotheses(
-                inst_xyz[b * C:(b + 1) * C], inst_mask[b * C:(b + 1) * C],
-                cand_valid[b * C:(b + 1) * C],
-                Cloud(*(t[b] for t in feats.cloud)), **hv_kw)
-                for b in range(B)])
-        else:
-            cand_verified = verify_hypotheses(inst_xyz, inst_mask, cand_valid,
-                                              feats.cloud, **hv_kw)
+        with spans.stage("chain.hv", cand_poses):
+            cand_verified, hv_metrics = _verify_candidates(
+                feats, view_rows, cand_poses, cand_valid, cand_views, cfg)
         effective_fitness = torch.where(cand_verified, cand_fitness, _BIG)
     else:
         cand_verified = cand_valid
@@ -763,12 +837,11 @@ def refine_candidates(feats: SceneFeatures, bank: ModelBank, view_rows,
         cand_fitness=per_frame(cand_fitness), cand_views=per_frame(cand_views),
         cand_valid=per_frame(cand_valid),
         cand_verified=per_frame(cand_verified), obb=box, metrics=metrics)
-    if not batched:                   # one frame: no leading axis
-        res = res._replace(
-            **{f: getattr(res, f)[0] for f in res._fields
-               if f not in ("obb", "metrics")},
-            obb=OBB(*(t[0] for t in box)),
-            metrics={k: v[0] for k, v in metrics.items()})
+    res = res._replace(                # one frame: no leading axis
+        **{f: getattr(res, f)[0] for f in res._fields
+           if f not in ("obb", "metrics")},
+        obb=OBB(*(t[0] for t in box)),
+        metrics={k: v[0] for k, v in metrics.items()} | hv_metrics)
     res.metrics["has_model"] = has_model
     return res
 

@@ -8,7 +8,8 @@ from 3³ non-max suppression and ``lax.top_k``'s order (stable sort). With
 ``split_rotation_modes`` each peak emits its two rotation modes (consensus
 anchors, ~45° cones), interleaved as [peak0·mode0, peak0·mode1, ...].
 A batch of B scenes folds into the view axis: B·V "views" in frame order,
-view v grouped against scene v // V.
+each frame's V views grouped alone, exactly as a one-frame chain groups
+them.
 """
 from __future__ import annotations
 
@@ -98,26 +99,37 @@ def hough_group(
     leading view axis: keys [V, Nm, 3], rf [V, Nm, 3, 3], rf_ok/mask
     [V, Nm]; ``corrs`` fields are [V, M]. With B scenes (keys [B, M, 3], rf
     [B, M, 3, 3], rf_ok [B, M]) the model arrays and ``corrs`` carry B·V
-    views in frame order.
+    views in frame order, and each frame is grouped on its own, with its
+    ``corrs`` laid out as a one-frame match lays them out (its [M, V]
+    columns seen as [V, M]): a sum over M adds in another order over
+    another shape or layout, and a rank-deficient fit on 3-4 matches turns
+    with that last bit, so a batch would hand a frame other candidates than
+    its own run.
     """
+    if scene_keys.ndim == 3:
+        B = scene_keys.shape[0]
+        V = model_keys.shape[0] // B
+        parts = [hough_group(
+            scene_keys[b], scene_rf[b], scene_rf_ok[b],
+            *(t[b * V:(b + 1) * V] for t in (model_keys, model_rf,
+                                             model_rf_ok, model_mask)),
+            Correspondences(*(t[b * V:(b + 1) * V].t().contiguous().t()
+                              for t in corrs)),
+            bin_size=bin_size, threshold=threshold,
+            max_instances=max_instances,
+            use_distance_weight=use_distance_weight,
+            split_rotation_modes=split_rotation_modes) for b in range(B)]
+        return Instances(*(torch.cat(f) for f in zip(*parts)))
     V = model_keys.shape[0]
     M = scene_keys.shape[-2]
     dev = scene_keys.device
-    batched = scene_keys.ndim == 3
-    if batched:      # every view sees its own frame's scene
-        per = V // scene_keys.shape[0]
-        scene_keys, scene_rf, scene_rf_ok = (
-            t.repeat_interleave(per, 0)
-            for t in (scene_keys, scene_rf, scene_rf_ok))
-    else:
-        scene_keys, scene_rf_ok = scene_keys[None], scene_rf_ok[None, :]
+    scene_keys, scene_rf_ok = scene_keys[None], scene_rf_ok[None, :]
     mi = corrs.model_idx.long()
     cvalid = (corrs.valid & scene_rf_ok
               & torch.gather(model_rf_ok, 1, mi) & torch.gather(model_mask, 1, mi))
     local = model_local_votes(model_keys, model_rf, model_mask)
     cast = _gather_rows(local, mi)                              # [V, M, 3]
-    votes_xyz = scene_keys + torch.einsum(
-        "vmji,vmj->vmi" if batched else "mji,vmj->vmi", scene_rf, cast)
+    votes_xyz = scene_keys + torch.einsum("mji,vmj->vmi", scene_rf, cast)
 
     cv = cvalid.to(torch.float32)
     nvalid = torch.clamp_min(cv.sum(1), 1.0)
@@ -148,9 +160,8 @@ def hough_group(
 
     if split:
         # rf rows are axes: scene_rf = model_rf·Rᵀ  ⇒  R = scene_rfᵀ·model_rf
-        R_corr = torch.einsum(
-            "vmts,vmtk->vmsk" if batched else "mts,vmtk->vmsk", scene_rf,
-            _gather_rows(model_rf, mi))
+        R_corr = torch.einsum("mts,vmtk->vmsk", scene_rf,
+                              _gather_rows(model_rf, mi))
         m1, cos1 = _consensus(membership, w, R_corr)
         m2, _ = _consensus(membership & (cos1 <= _MODE_COS), w, R_corr)
         membership = torch.stack([m1, m2], dim=2).reshape(V, 2 * n_peaks, M)

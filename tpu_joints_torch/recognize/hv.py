@@ -11,6 +11,9 @@ jointly pick the boolean subset that best explains the scene:
 Up to H = 16 all 2^H subsets are evaluated, 256 patterns at a time; above,
 a batched single-flip local search from the empty set runs a fixed 2H
 steps. Neither reads the device on the host.
+``verify_hypotheses_counted`` also hands back what the verdict was made of
+(explained and outlier counts, steps run and steps that changed the set),
+which a served reply carries as its ``hv_*`` metrics.
 
 The two nearest-neighbour searches behind ``explained`` and ``outliers`` go
 to kernel K1: scene → instance h (every instance is its own source cloud) is
@@ -135,20 +138,46 @@ def verify_hypotheses(instances_xyz: torch.Tensor,
     (padding hypotheses are never selected). ``occlusion_threshold > 0``
     turns on the occlusion exemption (the scene must be in camera
     coordinates, the viewpoint at the origin)."""
+    return verify_hypotheses_counted(
+        instances_xyz, instances_mask, instances_valid, scene,
+        inlier_threshold, outlier_regularizer, multiple_assignment_penalty,
+        occlusion_threshold)[0]
+
+
+def verify_hypotheses_counted(instances_xyz: torch.Tensor,
+                              instances_mask: torch.Tensor,
+                              instances_valid: torch.Tensor, scene: Cloud,
+                              inlier_threshold: float = 0.005,
+                              outlier_regularizer: float = 0.001,
+                              multiple_assignment_penalty: float = 1.0,
+                              occlusion_threshold: float = 0.0):
+    """:func:`verify_hypotheses` and what its verdict was made of, all on
+    the device: (verified bool[H], dict(explained int32[H] — the scene
+    points within the inlier threshold of each hypothesis, outliers f32[H],
+    steps — greedy steps or exhaustive chunks run, improved — those that
+    changed the chosen set, both int32 scalars)). Invalid hypotheses count
+    0 explained points."""
     explained, outliers = _explained_matrix(
         instances_xyz, instances_mask, scene, inlier_threshold,
         occlusion_threshold=occlusion_threshold)
-    return _select_hypotheses(explained, outliers, instances_valid,
-                             outlier_regularizer, multiple_assignment_penalty)
+    verified, steps, improved = _select_hypotheses(
+        explained, outliers, instances_valid, outlier_regularizer,
+        multiple_assignment_penalty)
+    counts = dict(
+        explained=(explained & instances_valid[:, None]).sum(
+            1, dtype=torch.int32),
+        outliers=outliers, steps=steps, improved=improved)
+    return verified, counts
 
 
 def _select_hypotheses(explained: torch.Tensor, outliers: torch.Tensor,
-                      instances_valid: torch.Tensor,
-                      outlier_regularizer: float = 0.001,
-                      multiple_assignment_penalty: float = 1.0
-                      ) -> torch.Tensor:
+                       instances_valid: torch.Tensor,
+                       outlier_regularizer: float = 0.001,
+                       multiple_assignment_penalty: float = 1.0):
     """The search of :func:`verify_hypotheses` on a given explained
-    bool[H, Ns] and outliers f32[H]: exhaustive up to H = 16, greedy above."""
+    bool[H, Ns] and outliers f32[H], exhaustive up to H = 16, greedy above:
+    (verified bool[H], steps, improved), the step counts as int32 scalars
+    on the device."""
     H = explained.shape[0]
     dev = explained.device
     explained = explained & instances_valid[:, None]
@@ -173,17 +202,24 @@ def _select_hypotheses(explained: torch.Tensor, outliers: torch.Tensor,
         _, j = top_k(-cost, 1)
         costs.append(take(cost, j[0]))
         actives.append(take(active, j[0]))
-    _, best = top_k(-torch.stack(costs), 1)
-    return take(torch.stack(actives), best[0])
+    costs = torch.stack(costs)
+    _, best = top_k(-costs, 1)
+    # a chunk improves when its minimum is below every earlier chunk's
+    earlier = torch.cat([costs.new_full((1,), float("inf")),
+                         torch.cummin(costs, 0).values[:-1]])
+    improved = (costs < earlier).sum(dtype=torch.int32)
+    steps = torch.full((), costs.shape[0], dtype=torch.int32, device=dev)
+    return take(torch.stack(actives), best[0]), steps, improved
 
 
 def _greedy_verify(explained: torch.Tensor, outliers: torch.Tensor,
                    valid: torch.Tensor, outlier_regularizer: float,
-                   multiple_assignment_penalty: float) -> torch.Tensor:
+                   multiple_assignment_penalty: float):
     """Single-flip local search from the empty set: each of the 2H steps
     evaluates all H one-bit flips as one [H, Ns] product and takes the best
     strictly improving one. ``explained`` bool[H, Ns] is already masked by
-    validity, ``outliers`` f32[H] is inf on invalid hypotheses."""
+    validity, ``outliers`` f32[H] is inf on invalid hypotheses. Returns
+    (active bool[H], steps, improved) as :func:`_select_hypotheses` does."""
     H = explained.shape[0]
     dev = explained.device
     ex_f = explained.to(torch.float32)
@@ -192,6 +228,7 @@ def _greedy_verify(explained: torch.Tensor, outliers: torch.Tensor,
     active = torch.zeros(H, dtype=torch.bool, device=dev)
     cost = _cost(active.to(torch.float32)[None], ex_f, out_vec,
                  outlier_regularizer, multiple_assignment_penalty)[0]
+    moved = []
     for _ in range(2 * H):
         # flipping an invalid bit duplicates `active` and never strictly
         # improves, so invalid bits stay off
@@ -203,4 +240,6 @@ def _greedy_verify(explained: torch.Tensor, outliers: torch.Tensor,
         better = cj < cost - 1e-6
         active = torch.where(better, take(flips, j[0]), active)
         cost = torch.where(better, cj, cost)
-    return active
+        moved.append(better)
+    steps = torch.full((), 2 * H, dtype=torch.int32, device=dev)
+    return active, steps, torch.stack(moved).sum(dtype=torch.int32)

@@ -7,13 +7,8 @@ on the card — then a per-candidate Umeyama or point-to-plane solve.
 The reference's ``icp_multi_capped`` chunking existed only for a TPU
 runtime fault and has no counterpart: ``icp_multi`` is called once; so is
 the coverage search, whatever C·S is (the reference streams above 65536
-rows to bound a temporary that K1 never forms).
-
-A batch of frames: ``icp_multi`` and ``scene_coverage_multi`` take a target
-(scene) Cloud with a leading batch axis, ``xyz [B, Nt, 3]``; the C poses are
-then B equal groups in frame order, group b searching frame b — one launch
-of K1's batch mode per ICP iteration, and still one folded K1 launch for
-the coverage (its source, the model, is shared).
+rows to bound a temporary that K1 never forms). A batch of frames calls
+them frame by frame (``pipelines/detect.py::refine_candidates``).
 """
 from __future__ import annotations
 
@@ -26,7 +21,7 @@ from tpu_joints_torch.core.cloud import Cloud
 from tpu_joints_torch.core.transforms import (invert_rigid, transform_points,
                                               umeyama)
 from tpu_joints_torch.features.eigen3 import cross, norm
-from tpu_joints_torch.neighbors.bruteforce import knn, knn_batched
+from tpu_joints_torch.neighbors.bruteforce import knn
 
 _BIG = 3.0e38
 
@@ -86,16 +81,8 @@ def _plane_delta(moved, q, n, w) -> torch.Tensor:
 
 def _nn(moved: torch.Tensor, target: Cloud):
     """Nearest target point of every moved source point: (dist² [C, N], idx
-    int64[C, N] into ``target.xyz.reshape(-1, 3)``). A batched target
-    [B, Nt, 3] serves the C candidates in B groups, each against its own
-    frame."""
+    int64[C, N] into ``target.xyz``)."""
     C, N, _ = moved.shape
-    if target.xyz.ndim == 3:
-        B, Nt, _ = target.xyz.shape
-        d, i = knn_batched(moved.reshape(B, (C // B) * N, 3), target.xyz, 1,
-                           source_mask=target.mask)
-        i = i.long() + Nt * torch.arange(B, device=i.device)[:, None, None]
-        return d.reshape(C, N), i.reshape(C, N)
     d, i = knn(moved.reshape(C * N, 3), target.xyz, 1, source_mask=target.mask)
     return d[:, 0].reshape(C, N), i[:, 0].reshape(C, N).long()
 
@@ -118,19 +105,12 @@ def icp_multi(
     with_fitness: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """ICP of C (source [C, N, 3], mask [C, N], init pose [C, 4, 4]) pairs
-    against one target, or against B targets (``target.xyz [B, Nt, 3]``,
-    ``target_normals [B, Nt, 3]``; C = B equal groups in frame order).
-    Returns (T [C, 4, 4], fitness [C] — PCL mean squared NN distance, zeros
-    when ``with_fitness`` is False)."""
+    against one target. Returns (T [C, 4, 4], fitness [C] — PCL mean
+    squared NN distance, zeros when ``with_fitness`` is False)."""
     C = src_xyz.shape[0]
     if point_to_plane and target_normals is None:
         raise ValueError("point_to_plane=True requires target_normals")
-    if target.xyz.ndim == 3 and C % target.xyz.shape[0]:
-        raise ValueError(f"{C} candidates do not split over "
-                         f"{target.xyz.shape[0]} frames")
-    target_xyz = target.xyz.reshape(-1, 3)
-    if target_normals is not None:
-        target_normals = target_normals.reshape(-1, 3)
+    target_xyz = target.xyz
     Ts = init_T.to(torch.float32)
     for max_sq in _corr_thresholds(iterations, max_corr_dist, max_corr_start):
         moved = _move(Ts, src_xyz)
@@ -170,22 +150,13 @@ def scene_coverage_multi(
     pose's model-frame origin: in a multi-instance scene the global
     fraction is dominated by the other instances' points, the local one
     keeps the single-instance meaning per candidate. Coverage stays global.
-
-    A batched scene (``xyz [B, S, 3]``): the C poses are B equal groups in
-    frame order, each moved through its own frame; still one search."""
+    """
     C = Ts.shape[0]
     inv = invert_rigid(Ts)
-    if scene.xyz.ndim == 3:
-        B, S, _ = scene.xyz.shape
-        moved = (torch.einsum("bcij,bnj->bcni",
-                              inv[:, :3, :3].reshape(B, C // B, 3, 3), scene.xyz)
-                 .reshape(C, S, 3) + inv[:, None, :3, 3])
-        w = scene.mask.to(torch.float32).repeat_interleave(C // B, 0)
-    else:
-        S = scene.capacity
-        moved = torch.einsum("cij,nj->cni", inv[:, :3, :3], scene.xyz) \
-            + inv[:, None, :3, 3]
-        w = scene.mask[None, :].to(torch.float32)
+    S = scene.capacity
+    moved = torch.einsum("cij,nj->cni", inv[:, :3, :3], scene.xyz) \
+        + inv[:, None, :3, 3]
+    w = scene.mask[None, :].to(torch.float32)
     d, _ = knn(moved.reshape(C * S, 3), model_xyz, 1, source_mask=model_mask)
     dist_sq = d[:, 0].reshape(C, S)
     denom = torch.clamp_min(w.sum(1), 1.0)
