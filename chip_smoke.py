@@ -24,9 +24,9 @@ Phases (any failure raises and the exit code is non-zero):
   1. device  — card name and power limit (nvidia-smi);
   2. build   — compiles kernels K1 (nn1.cu: tj_nn1 and its batch mode
                tj_nn1_batched) and K2 (knnk.cu, both with the shared
-               knn_split.cuh) and the served frame's unproject.cu from the
-               checkout, one nvcc each, started together (with --against,
-               the other version's too);
+               knn_split.cuh), the served frame's unproject.cu and GO-HV's
+               greedy search hv_greedy.cu from the checkout, one nvcc each,
+               started together (with --against, the other version's too);
   3. kernels — K1, K1's batch mode and K2 against their plain PyTorch
                versions on the card (the batch mode also against B unbatched
                K1 launches; fixed shapes, the stacked edge cases of
@@ -86,8 +86,12 @@ Phases (any failure raises and the exit code is non-zero):
                verification over the 48 registered candidates): the same
                gate, the verified count, the launches HV adds (one of K1's
                batch mode, one folded K1; both rechecked on their recorded
-               inputs and timed), HV on against HV off in turns, and
-               verify_hypotheses at small size on the card against the CPU;
+               inputs and timed; one hv_greedy launch, the greedy search's
+               kernel, bit-equal to _greedy_verify on the card on its
+               recorded 48 x 8192 inputs and timed against it), HV on
+               against HV off in turns, and verify_hypotheses at small size
+               on the card against the CPU (its H = 24 greedy search one
+               hv_greedy launch, checked and timed the same way);
  11. batch of 8 — detect_organized_batch on bench.py's 8 jittered frames
                with the scene_latency config: 0 host syncs, launches by
                shape (every frame refined on its own: 8 x phase 5's
@@ -128,9 +132,10 @@ Phases (any failure raises and the exit code is non-zero):
                12.4 GO-HV (the two-instance frame and a jittered copy,
                batch_max 2): the GOOD list and the verified count equal to
                the single run's, every GOOD instance on a joint within
-               1 deg / 5 mm; 12.5 a points request (phase 6's cloud through
-               the native ingest, which must have built): equal to phase 6's
-               detect, the gate. Every shape a served path launches that no
+               1 deg / 5 mm, and one served frame (a replay) launching
+               hv_greedy once (profiler); 12.5 a points request (phase 6's
+               cloud through the native ingest, which must have built):
+               equal to phase 6's detect, the gate. Every shape a served path launches that no
                earlier path did is rechecked bit for bit on its inputs, and
                the shapes only a served path launches are timed (5 calls);
  13. FPFH and the generic options — 13.1 bench.py's FPFH bank
@@ -569,6 +574,79 @@ def _unproject_phase(dev, card):
             "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None}
 
 
+class _HVRecorder:
+    """Wraps ``recognize.hv.hv_greedy`` (the greedy search's entry from
+    ``_select_hypotheses``) and keeps every call's arguments, the tensors
+    cloned."""
+
+    def __init__(self):
+        from tpu_joints_torch.recognize import hv
+
+        self.hv, self.real, self.calls = hv, hv.hv_greedy, []
+
+    def __call__(self, *args):
+        self.calls.append(tuple(a.clone() if hasattr(a, "clone") else a
+                                for a in args))
+        return self.real(*args)
+
+    def __enter__(self):
+        self.hv.hv_greedy = self
+        return self
+
+    def __exit__(self, *exc):
+        self.hv.hv_greedy = self.real
+
+
+def _time_hv_greedy(label, args, card):
+    """GO-HV's greedy search kernel (``hv_greedy.cu``) on a recorded call's
+    inputs against its plain version ``_greedy_verify`` run on the card:
+    bit-equal (active set, steps, improving steps), one launch, then CUDA
+    events and profiler device time of both. The bound is one read of
+    explained (bool[H, Ns]), outliers and valid over 3.35 TB/s; the 2H
+    steps are a chain, so the time per step is printed beside it. Returns
+    the kernels line's row."""
+    import torch
+
+    from tpu_joints_torch.recognize import hv as thv
+
+    ex, out, valid = args[:3]
+    H, Ns = ex.shape
+    fns = {"kernel": lambda: thv.hv_greedy(*args),
+           "plain": lambda: thv._greedy_verify(*args)}
+    before = thv.hv_greedy.launches
+    got = fns["kernel"]()
+    torch.cuda.synchronize()
+    launched = thv.hv_greedy.launches - before
+    want = fns["plain"]()
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    if not same or launched != 1:
+        raise RuntimeError(f"{label}: hv_greedy at H = {H}, Ns = {Ns} "
+                           f"launched {launched} times, equal to "
+                           f"_greedy_verify: {same}")
+    ev = {"kernel": _event_ms(fns["kernel"]),
+          "plain": _event_ms(fns["plain"], reps=5)}
+    dv = {"kernel": _device_ms(fns["kernel"]),
+          "plain": _device_ms(fns["plain"], reps=5)}
+    nbytes = H * Ns + 5 * H + 8
+    bound_ms = 1e3 * nbytes / HBM_BYTES_PER_S
+    print(f"# timing {label} hv_greedy H = {H}, Ns = {Ns} (active "
+          f"{int(got[0].sum())}, steps {int(got[1])}, improving "
+          f"{int(got[2])}; bit-equal to _greedy_verify on the card, one "
+          f"launch): median of CUDA-event runs, ms: kernel "
+          f"{ev['kernel']:.4f} (20), plain {ev['plain']:.4f} (5); device "
+          f"time per call (profiler), ms: kernel {dv['kernel']:.4f}, plain "
+          f"{dv['plain']:.4f}; kernel {1e3 * dv['kernel'] / (2 * H):.2f} us "
+          f"a step; bound {bound_ms:.5f} ms ({nbytes} bytes once) {card}",
+          flush=True)
+    return {"name": "hv_greedy", "route": "cuda",
+            "source": "tpu_joints_torch/neighbors/csrc/hv_greedy.cu",
+            "replaces": None, "shape": [H, Ns], "label": label,
+            "ms": ev["kernel"], "dev_ms": dv["kernel"],
+            "plain_ms": ev["plain"], "plain_dev_ms": dv["plain"],
+            "bound_ms": bound_ms, "bound_by": "bytes (2H dependent steps)",
+            "library_ms": None}
+
+
 class _Recorder:
     """Wraps ``bruteforce.nn1``, ``bruteforce.nn1_batched`` and
     ``bruteforce.knnk`` (the kernels' entries from ``knn`` and
@@ -779,12 +857,16 @@ def _instances_gate(label, res, cfg, T_a, T_b, card, good_instances):
 def _small_hv(dev, card):
     """verify_hypotheses at small size on the card against the CPU: the
     exhaustive sweep (H = 9, two chunks, one invalid hypothesis) and the
-    greedy search (H = 24), with the occlusion exemption; masks equal."""
+    greedy search (H = 24, one ``hv_greedy`` launch on the card, none on
+    the CPU), with the occlusion exemption; masks equal. The greedy
+    search's kernel is then timed on the card's H = 24 inputs
+    (:func:`_time_hv_greedy`, whose kernels row is returned)."""
     import numpy as np
     import torch
 
     from tpu_joints_torch import synthetic as syn
     from tpu_joints_torch.core.cloud import make_cloud
+    from tpu_joints_torch.recognize import hv as thv
     from tpu_joints_torch.recognize.hv import verify_hypotheses
 
     rng = np.random.default_rng(0)
@@ -802,22 +884,29 @@ def _small_hv(dev, card):
             for _ in range(H - 3)])
         valid = np.ones(H, bool)
         valid[4] = False
-        out = {}
+        out, calls = {}, {}
         for d in (dev, torch.device("cpu")):
-            out[d.type] = verify_hypotheses(
-                torch.as_tensor(insts, device=d),
-                torch.as_tensor(np.tile(mask, (H, 1)), device=d),
-                torch.as_tensor(valid, device=d),
-                make_cloud(seen, capacity=1024, device=d),
-                inlier_threshold=0.005, occlusion_threshold=0.001).cpu()
+            before = thv.hv_greedy.launches
+            with _HVRecorder() as rec:
+                out[d.type] = verify_hypotheses(
+                    torch.as_tensor(insts, device=d),
+                    torch.as_tensor(np.tile(mask, (H, 1)), device=d),
+                    torch.as_tensor(valid, device=d),
+                    make_cloud(seen, capacity=1024, device=d),
+                    inlier_threshold=0.005, occlusion_threshold=0.001).cpu()
+            calls[d.type] = (rec.calls, thv.hv_greedy.launches - before)
         print(f"# phase 10 verify_hypotheses small, H = {H} "
               f"({'greedy' if H > 16 else 'exhaustive'}), card vs CPU: "
-              f"{out['cuda'].int().tolist()} vs {out['cpu'].int().tolist()} "
-              f"{card}", flush=True)
+              f"{out['cuda'].int().tolist()} vs {out['cpu'].int().tolist()}; "
+              f"hv_greedy launches card, CPU: {calls['cuda'][1]}, "
+              f"{calls['cpu'][1]} {card}", flush=True)
         if not torch.equal(out["cuda"], out["cpu"]) or not out["cuda"].any() \
-                or bool(out["cuda"][4]):
+                or bool(out["cuda"][4]) or calls["cuda"][1] != (H > 16) \
+                or calls["cpu"][1] != 0:
             raise RuntimeError(f"card and CPU disagree on verify_hypotheses "
                                f"(H = {H})")
+    return _time_hv_greedy("phase 10 (small, H = 24)", calls["cuda"][0][0],
+                           card)
 
 
 def _small_on(d):
@@ -1457,6 +1546,14 @@ def _serve_phase(dev, kind, card, bank, launches, check, check_batched, cfgs,
                                f"listed or missing GOOD instance: "
                                f"{listed(j_b)}")
         found |= {j[0] for j in j_b}
+    # a served GO-HV frame replays its captured chain: one hv_greedy launch
+    depth0 = _decode_array(bodies[0], "depth")
+    n_hv = _kernels_named(lambda: single.detect_depth(depth0), "hv_greedy")
+    print(f"# phase 12.4 one served GO-HV frame (a replay) launched "
+          f"hv_greedy {n_hv} time(s) (profiler) {card}", flush=True)
+    if n_hv != 1:
+        raise RuntimeError(f"a served GO-HV frame launched hv_greedy {n_hv} "
+                           f"times, expected once")
     # the same frame as phase 10 gives it (the raycast cloud, not the
     # unprojected depth), without the crop box: reported, not gated
     r_x, _ = detect_organized(torch.as_tensor(two_h, device=dev),
@@ -2380,6 +2477,24 @@ def _profile_call(fn):
             k1, k2)
 
 
+def _kernels_named(fn, name):
+    """Device kernels whose name holds ``name`` in one call of ``fn``, from
+    the profiler (a replay launches no wrapper). A profile with no device
+    event is taken again, up to three times."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        ka = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+        if ka:
+            return sum(e.count for e in ka if name in e.key)
+    raise RuntimeError("the profiler caught no device event in three tries")
+
+
 def _quartiles(times):
     q1, q2, q3 = statistics.quantiles(times, n=4)
     return f"{q2:.3f} ms [{q1:.3f}, {q3:.3f}]"
@@ -3252,8 +3367,8 @@ def main() -> None:
         small = ex.submit(_small_on, torch.device("cpu"))
         pk.build_all()
         print(f"# phase 2 build: nn1.cu (tj_nn1, tj_nn1_batched), knnk.cu "
-              f"(tj_knnk) and unproject.cu (tj_unproject) compiled (in "
-              f"parallel) and bound in "
+              f"(tj_knnk), unproject.cu (tj_unproject) and hv_greedy.cu "
+              f"(tj_hv_greedy) compiled (in parallel) and bound in "
               f"{time.perf_counter() - t0:.3f} s {card}", flush=True)
         small_cpu = small.result()
     print(f"# phase 2 the small paths on the CPU done "
@@ -3636,8 +3751,12 @@ def main() -> None:
     # --- phase 10: global hypothesis verification --------------------------
     print(f"# phase 10 starts {time.perf_counter() - _T_START:.1f} s "
           f"into the script {card}", flush=True)
-    (res_hv, _), rec, (hv_k1, hv_kb, hv_k2) = counted_frame(
-        "phase 10 GO-HV path", lambda: run_multi(hv_cfg))
+    with _HVRecorder() as hv_rec:
+        (res_hv, _), rec, (hv_k1, hv_kb, hv_k2) = counted_frame(
+            "phase 10 GO-HV path", lambda: run_multi(hv_cfg))
+    if len(hv_rec.calls) != 1:
+        raise RuntimeError(f"the HV frame called hv_greedy "
+                           f"{len(hv_rec.calls)} times, expected once")
     launches["hv"] = rec.shapes()
     Nv = bank.view_xyz.shape[1]
     hv_shapes = {(48, 8192, Nv, 1): 1, (48 * Nv, 8192, 1): 1}
@@ -3673,7 +3792,10 @@ def main() -> None:
           f"operations, peak {peak:.1f} MiB {card}", flush=True)
     _instances_gate("phase 10 GO-HV", res_hv, hv_cfg, T_a, T_b, card,
                     good_instances)
-    _small_hv(dev, card)
+    hv_rows = [_time_hv_greedy("phase 10 (the cell's shape)",
+                               hv_rec.calls[0], card)]
+    del hv_rec
+    hv_rows.append(_small_hv(dev, card))
 
     # --- phase 11: a batch of 8 frames --------------------------------------
     print(f"# phase 11 starts {time.perf_counter() - _T_START:.1f} s "
@@ -3859,6 +3981,7 @@ def main() -> None:
             "library_ms": None, "cdist_topk_ms": row["cdist_topk_ms"],
             "timings": timings[kk]})
     kernels.append(unproject_row)
+    kernels.extend(hv_rows)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -15,6 +15,7 @@ from tpu_joints_torch.neighbors import pallas_knn as k1
 from tpu_joints_torch.neighbors.bruteforce import knn
 from tpu_joints_torch.neighbors.knn_cases import (CASES, STRADDLE, batches,
                                                   straddle)
+from tpu_joints_torch.recognize import hv_cases
 from tpu_joints_torch.segment.region_growing import region_growing
 
 
@@ -1033,3 +1034,95 @@ def test_two_request_threads_batch_as_each_frame_alone_on_card():
         assert out == ref
     assert (got[0]["metrics"]["scene_points"]
             != got[1]["metrics"]["scene_points"])
+
+
+def _joint_hv_search():
+    """The greedy search's inputs (explained, outliers, valid, prepared as
+    ``_select_hypotheses`` prepares them) of one served ``joint_hv`` frame
+    at the cell's own configuration: 48 hypotheses over 8,192 lanes,
+    recorded on the card from the chain's eager warm-up."""
+    import json
+
+    from benchmark import cells, frames
+    from benchmark.reference import joint
+    from tpu_joints_torch.config import DetectionConfig
+    from tpu_joints_torch.modelbank.bank import build_bank
+    from tpu_joints_torch.recognize import hv as thv
+    from tpu_joints_torch.serve import DetectionService
+
+    cfg = json.loads((cells.HERE / "configs" / "joint_hv.json").read_text())
+    scene = frames.Scene(cfg)
+    pool = frames.make_pool(scene, 1, 2 ** 31 + 2026, "cuda")
+    recipe = dict(cfg["bank"])
+    bank = build_bank(joint.joint_model(recipe.pop("model")), device="cuda",
+                      **recipe)
+    seen, real = [], thv.hv_greedy
+
+    def record(*a):
+        if not seen:
+            seen.append(tuple(t.clone() for t in a[:3]))
+        return real(*a)
+
+    thv.hv_greedy = record
+    try:
+        DetectionService(bank, DetectionConfig(**cfg["detection"])
+                         ).detect_depth(pool["depth"][0],
+                                        fov_deg=scene.fov_deg)
+    finally:
+        thv.hv_greedy = real
+    torch.cuda.synchronize()
+    return seen[0]
+
+
+def _hv_greedy_inputs(name):
+    """[(explained, outliers, valid)] on the card, prepared: one frame of
+    ``hv_cases``, the cell's frame, three frames of one shape for one
+    batched launch, or 64 × 65,536 (too large for shared memory: the
+    packed rows go to the global workspace)."""
+    if name == "joint_hv_frame":
+        return [_joint_hv_search()]
+    if name == "batch_of_three":
+        arrays = [hv_cases.random_case(48, 8192, seed=s) for s in range(3)]
+    elif name == "workspace_H64_N65536":
+        arrays = [hv_cases.random_case(64, 65536)]
+    else:
+        arrays = [hv_cases.cases()[name]]
+    return [tuple(torch.as_tensor(a, device="cuda")
+                  for a in hv_cases.prepare(*x)) for x in arrays]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(hv_cases.cases()) + [
+    "joint_hv_frame", "batch_of_three", "workspace_H64_N65536"])
+def test_hv_greedy_kernel_equals_plain_on_card(name):
+    """GO-HV's greedy search kernel equals ``_greedy_verify`` bit for bit
+    (active set, steps, improving steps), against the plain version on the
+    CPU and on the card, on every ``hv_cases`` case (H 17-64 and 4, Ns
+    1,000 / 8,192 / 16,384, invalid hypotheses, ties, outliers deciding,
+    margins, an empty matrix), on a served ``joint_hv`` frame, on a batch
+    of three frames and past shared memory; one launch a call."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from tpu_joints_torch.recognize import hv as thv
+
+    frames = _hv_greedy_inputs(name)
+    args = (0.001, 1.0)
+    if name == "batch_of_three":
+        frames = [tuple(torch.stack(x) for x in zip(*frames))]
+    for ex, out, valid in frames:
+        before = thv.hv_greedy.launches
+        got = thv.hv_greedy(ex, out, valid, *args)
+        torch.cuda.synchronize()
+        assert thv.hv_greedy.launches == before + 1
+        per = ([thv._greedy_verify(e, o, v, *args)
+                for e, o, v in zip(ex, out, valid)] if ex.ndim == 3
+               else [thv._greedy_verify(ex, out, valid, *args)])
+        for i, want in enumerate(per):
+            mine = [g[i] if ex.ndim == 3 else g for g in got]
+            e, o, v = (t[i] if ex.ndim == 3 else t for t in (ex, out, valid))
+            cpu = thv._greedy_verify(e.cpu(), o.cpu(), v.cpu(), *args)
+            for g, w, c in zip(mine, want, cpu):
+                assert torch.equal(g.cpu(), w.cpu()) and torch.equal(
+                    w.cpu(), c), (name, i)
+        if name == "joint_hv_frame":
+            assert ex.shape == (48, 8192) and bool(got[0].any())

@@ -8,7 +8,9 @@ outer grid axis): ``nn1_batched`` searches entry b of ``query [B, M, 3]`` in
 entry b of ``source [B, N, 3]`` under ``source_mask [B, N]``, in one launch
 (``tj_nn1_batched`` in ``csrc/nn1.cu``), equal bit for bit to B ``nn1``
 calls. The same route builds ``csrc/unproject.cu``, the served depth
-frame's kernel (``serve/depth.py::unproject``; it replaces no TPU kernel).
+frame's kernel (``serve/depth.py::unproject``), and ``csrc/hv_greedy.cu``,
+GO-HV's greedy search (``recognize/hv.py::hv_greedy``); neither replaces a
+TPU kernel.
 Each source is compiled with nvcc for ``sm_90a`` on first use into
 ``tpu_joints_torch/_build/`` (keyed by a hash of the source, the shared
 headers and the flags) and
@@ -67,6 +69,8 @@ _ENTRY = {"nn1": {"tj_nn1": [_P] * 5 + [_I, _I, _P],
                   "tj_nn1_batched": [_P] * 5 + [_I, _I, _I, _P]},
           "knnk": {"tj_knnk": [_P] * 5 + [_I, _I, _I, _P]},
           "unproject": {"tj_unproject": [_P] * 6 + [_I] * 3 + [_F] * 3
+                        + [_P]},
+          "hv_greedy": {"tj_hv_greedy": [_P] * 7 + [_I] * 3 + [_F] * 2
                         + [_P]}}
 _SOURCE_OF = {entry[3:]: src for src, entries in _ENTRY.items()
               for entry in entries}
@@ -142,8 +146,8 @@ def load_library(name: str = "nn1") -> ctypes.CDLL:
 
 
 def build_all() -> None:
-    """Build every kernel library of this module in parallel (K1, K2 and
-    ``unproject``) and bind them."""
+    """Build every kernel library of this module in parallel (K1, K2,
+    ``unproject`` and ``hv_greedy``) and bind them."""
     with _build_lock:
         _compile(_ENTRY)
     for name in _ENTRY:

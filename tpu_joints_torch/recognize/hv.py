@@ -9,8 +9,10 @@ jointly pick the boolean subset that best explains the scene:
                    + λ_mult · #scene points explained by >= 2 active instances
 
 Up to H = 16 all 2^H subsets are evaluated, 256 patterns at a time; above,
-a batched single-flip local search from the empty set runs a fixed 2H
-steps. Neither reads the device on the host.
+a single-flip local search from the empty set runs a fixed 2H steps: on a
+card one launch of a hand-written CUDA kernel (``neighbors/csrc/hv_greedy.cu``,
+:func:`hv_greedy`), on the CPU its plain version :func:`_greedy_verify`.
+Neither search reads the device on the host.
 ``verify_hypotheses_counted`` also hands back what the verdict was made of
 (explained and outlier counts, steps run and steps that changed the set),
 which a served reply carries as its ``hv_*`` metrics.
@@ -24,6 +26,7 @@ point within rounding of the inlier threshold can fall on the other side.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Tuple
 
 import numpy as np
@@ -33,6 +36,7 @@ import torch.nn.functional as F
 from tpu_joints_torch.core.cloud import Cloud
 from tpu_joints_torch.core.ops import take, top_k
 from tpu_joints_torch.neighbors.bruteforce import knn, knn_batched
+from tpu_joints_torch.neighbors.pallas_knn import _count_lock, load_library
 
 _BIG = 3.0e38
 _PATTERNS = 256        # activation patterns per chunk of the exhaustive sweep
@@ -183,8 +187,8 @@ def _select_hypotheses(explained: torch.Tensor, outliers: torch.Tensor,
     explained = explained & instances_valid[:, None]
     outliers = torch.where(instances_valid, outliers, float("inf"))
     if H > 16:
-        return _greedy_verify(explained, outliers, instances_valid,
-                              outlier_regularizer, multiple_assignment_penalty)
+        return hv_greedy(explained, outliers, instances_valid,
+                         outlier_regularizer, multiple_assignment_penalty)
     ex_f = explained.to(torch.float32)
     out_vec = torch.where(torch.isfinite(outliers), outliers, 0.0)
     n_patterns = 2 ** H
@@ -243,3 +247,72 @@ def _greedy_verify(explained: torch.Tensor, outliers: torch.Tensor,
         moved.append(better)
     steps = torch.full((), 2 * H, dtype=torch.int32, device=dev)
     return active, steps, torch.stack(moved).sum(dtype=torch.int32)
+
+
+def hv_greedy(explained: torch.Tensor, outliers: torch.Tensor,
+              valid: torch.Tensor, outlier_regularizer: float = 0.001,
+              multiple_assignment_penalty: float = 1.0):
+    """The greedy search of :func:`_greedy_verify` on ``explained``
+    bool[[B,] H, Ns] (already masked by validity), ``outliers`` f32[[B,] H]
+    (counts; inf on invalid hypotheses) and ``valid`` bool[[B,] H]: (active
+    bool[[B,] H], steps, improved int32[[B]]).
+
+    A CPU tensor takes :func:`_greedy_verify`, frame by frame under a
+    leading batch axis. A CUDA tensor launches the kernel
+    ``neighbors/csrc/hv_greedy.cu`` on the current stream, one CUDA block a
+    frame, equal bit for bit while H·Ns < 2^24 (a failed build or launch
+    raises). ``hv_greedy.launches`` and ``hv_greedy.by_device`` count the
+    launches."""
+    if explained.ndim not in (2, 3) or explained.dtype != torch.bool:
+        raise ValueError(f"hv_greedy takes explained bool[[B,] H, Ns], got "
+                         f"{explained.dtype}{list(explained.shape)}")
+    lead, (H, Ns) = tuple(explained.shape[:-2]), explained.shape[-2:]
+    if (outliers.shape != lead + (H,) or outliers.dtype != torch.float32
+            or valid.shape != lead + (H,) or valid.dtype != torch.bool):
+        raise ValueError(f"hv_greedy takes outliers f32{list(lead + (H,))} "
+                         f"and valid bool{list(lead + (H,))}, got "
+                         f"{outliers.dtype}{list(outliers.shape)} and "
+                         f"{valid.dtype}{list(valid.shape)}")
+    if not explained.device == outliers.device == valid.device:
+        raise ValueError("hv_greedy inputs must share one device")
+    args = (outlier_regularizer, multiple_assignment_penalty)
+    if explained.device.type == "cpu":
+        if not lead:
+            return _greedy_verify(explained, outliers, valid, *args)
+        per = [_greedy_verify(e, o, v, *args)
+               for e, o, v in zip(explained, outliers, valid)]
+        return tuple(torch.stack(x) for x in zip(*per))
+    if explained.device.type != "cuda":
+        raise ValueError(f"hv_greedy runs on cpu or cuda, not "
+                         f"{explained.device}")
+    if H * Ns >= 1 << 24:
+        raise ValueError(f"hv_greedy's counts are exact in float32 below "
+                         f"H·Ns = 2^24, got {H}·{Ns}")
+    lib = load_library("hv_greedy")
+    dev = explained.device
+    ex = explained.contiguous().view(torch.uint8)
+    out = outliers.contiguous()
+    ok = valid.contiguous().view(torch.uint8)
+    B = explained.shape[0] if lead else 1
+    workspace = torch.empty(B * H * ((Ns + 31) // 32), dtype=torch.int32,
+                            device=dev)
+    active = torch.empty(lead + (H,), dtype=torch.bool, device=dev)
+    steps = torch.empty(lead, dtype=torch.int32, device=dev)
+    improved = torch.empty(lead, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        rc = lib.tj_hv_greedy(ex.data_ptr(), out.data_ptr(), ok.data_ptr(),
+                              workspace.data_ptr(), active.data_ptr(),
+                              steps.data_ptr(), improved.data_ptr(), B, H, Ns,
+                              *map(float, args), stream)
+    if rc != 0:
+        raise RuntimeError(f"hv_greedy kernel launch failed: cudaError_t {rc}")
+    with _count_lock:             # K1's: request threads launch concurrently
+        _counted.launches += 1
+        _counted.by_device[dev.index] += 1
+    return active, steps, improved
+
+
+hv_greedy.launches = 0
+hv_greedy.by_device = Counter()
+_counted = hv_greedy      # the counters' owner, even while a test wraps it
